@@ -1,0 +1,55 @@
+"""Model-layout wrappers around the attention kernels.
+
+Counterpart of ``repro.kernels.ops``.  The model's layout is (B, S, H, D)
+and the kernels take it as it is, so these wrappers only reshape.  Each
+kernel wrapper runs its plain PyTorch version on CPU tensors and its CUDA
+kernel on CUDA tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward as an autograd node.  Its backward is the flash
+    backward kernel, which only training uses and which is not ported yet
+    (ROADMAP Queue 2 item 3)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, _ = fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        raise NotImplementedError(
+            "the flash-attention backward kernel is not ported yet "
+            "(ROADMAP Queue 2 item 3: training)")
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q (B,Sq,H,D)  k,v (B,Sk,KV,D) -> (B,Sq,H,Dv)."""
+    return FlashAttention.apply(q, k, v, causal, window, q_offset)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (inference only)
+# ---------------------------------------------------------------------------
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     window: int = 0) -> torch.Tensor:
+    """q (B,1,H,D)  caches (B,S,KV,D[v])  lengths (B,) -> (B,1,H,Dv)."""
+    b, _, h, d = q.shape
+    kv = k_cache.shape[2]
+    qh = q.reshape(b, kv, h // kv, d)
+    out = da.decode_attention(qh, k_cache, v_cache, lengths, window=window)
+    return out.reshape(b, 1, h, -1)

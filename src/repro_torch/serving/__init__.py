@@ -1,0 +1,8 @@
+"""Serving substrate: scheduler, engine and execution contexts."""
+from repro_torch.serving.context import ModuleContext, TensorSpec, build_context
+from repro_torch.serving.engine import Engine, IterationRecord, bucket_chunk
+from repro_torch.serving.scheduler import Request, Scheduler, SchedulerConfig
+
+__all__ = ["ModuleContext", "TensorSpec", "build_context", "Engine",
+           "IterationRecord", "bucket_chunk", "Request", "Scheduler",
+           "SchedulerConfig"]

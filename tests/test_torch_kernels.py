@@ -1,0 +1,336 @@
+"""The port's attention kernels and reference attention against the JAX
+package's, on the same numpy inputs.
+
+On the CPU every kernel wrapper runs its plain PyTorch version; the JAX side
+runs the Pallas kernels in interpret mode, as tests/test_kernels.py does.
+Tolerances are those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in
+bfloat16 (outputs rounded to bf16 at different places).  Tests marked
+``gpu`` hold the CUDA kernels against their plain versions on a card.
+"""
+import math
+import stat
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+
+torch.set_num_threads(2)
+
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 8, 8, 32, True, 0),
+    (2, 128, 128, 4, 1, 64, True, 48),
+    (1, 100, 100, 2, 2, 64, False, 0),
+    (1, 64, 192, 4, 2, 32, True, 0),
+]
+DECODE_CASES = [
+    (2, 4, 2, 256, 64, 0),
+    (3, 8, 1, 512, 64, 0),
+    (2, 4, 4, 256, 64, 64),
+    (1, 8, 2, 128, 32, 0),
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _arrays(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, dtype=np.float32) for s in shapes]
+
+
+def _both(x, dtype="float32"):
+    """The same numbers as a JAX array and a torch tensor of ``dtype``."""
+    return jnp.asarray(x, dtype), torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _close(port, expected, dtype="float32"):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(expected, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def _qkv(case, seed=0, dtype="float32"):
+    b, sq, sk, h, kv, d = case[:6]
+    xs = _arrays(seed, (b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))
+    return [_both(x, dtype) for x in xs]
+
+
+def _decode_inputs(case, seed=0, dtype="float32"):
+    b, h, kv, smax, d, _ = case
+    q, kc, vc = _arrays(seed, (b, 1, h, d), (b, smax, kv, d), (b, smax, kv, d))
+    lengths = np.random.default_rng(seed + 1).integers(1, smax, b).astype(np.int32)
+    return ([_both(x, dtype) for x in (q, kc, vc)],
+            (jnp.asarray(lengths), torch.from_numpy(lengths)))
+
+
+# ---------------------------------------------------------------------------
+# flash forward: plain version vs the Pallas kernel and the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,win", FLASH_CASES)
+def test_flash_forward_matches_jax(b, sq, sk, h, kv, d, causal, win):
+    (jq, q), (jk, k), (jv, v) = _qkv((b, sq, sk, h, kv, d))
+    out = ops.flash_attention(q, k, v, causal, win)
+    _close(out, jops.flash_attention(jq, jk, jv, causal, win))
+    _close(out, jref.attention(jq, jk, jv, causal=causal, window=win))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,win", FLASH_CASES)
+def test_flash_lse_is_logsumexp_of_reference_logits(b, sq, sk, h, kv, d,
+                                                    causal, win):
+    (_, q), (_, k), (_, v) = _qkv((b, sq, sk, h, kv, d))
+    _, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+    qn, kn = q.double().numpy(), np.repeat(k.double().numpy(), h // kv, axis=2)
+    logits = np.einsum("bqhd,bkhd->bhqk", qn, kn) / math.sqrt(d)
+    qpos, kpos = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if win:
+        mask &= kpos > qpos - win
+    logits = np.where(mask, logits, -np.inf)
+    mx = logits.max(-1, keepdims=True)
+    expected = (mx + np.log(np.exp(logits - mx).sum(-1, keepdims=True)))[..., 0]
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    _close(lse, expected)
+
+
+def test_flash_forward_bf16():
+    case = (1, 128, 128, 4, 2, 64)
+    (jq, q), (jk, k), (jv, v) = _qkv(case, dtype="bfloat16")
+    out = ops.flash_attention(q, k, v, True, 0)
+    assert out.dtype == torch.bfloat16
+    _close(out, jops.flash_attention(jq, jk, jv, True, 0).astype(jnp.float32),
+           "bfloat16")
+    _close(out, jref.attention(jq, jk, jv, causal=True).astype(jnp.float32),
+           "bfloat16")
+
+
+def test_flash_fully_masked_row_is_zero_like_the_pallas_kernel():
+    # q_offset far behind the keys with a window: the first rows see no key
+    (jq, q), (jk, k), (jv, v) = _qkv((1, 16, 64, 2, 1, 32))
+    kw = dict(causal=True, window=4, q_offset=-8)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    assert torch.all(out[:, :8] == 0)
+    assert torch.all(lse[..., :8] < -1e29)
+    _close(out, jref.attention(jq, jk, jv, **kw))
+
+
+def test_flash_backward_is_not_ported():
+    (_, q), (_, k), (_, v) = _qkv((1, 16, 16, 2, 1, 32))
+    q.requires_grad_(True)
+    out = ops.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+        out.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# decode: plain version vs the Pallas kernel and the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,kv,smax,d,win", DECODE_CASES)
+def test_decode_matches_jax(b, h, kv, smax, d, win):
+    ((jq, q), (jk, kc), (jv, vc)), (jl, lengths) = _decode_inputs(
+        (b, h, kv, smax, d, win))
+    out = ops.decode_attention(q, kc, vc, lengths, window=win)
+    _close(out, jops.decode_attention(jq, jk, jv, jl, window=win))
+    _close(out, jref.decode_attention(jq, jk, jv, jl, window=win))
+
+
+def test_decode_bf16():
+    case = (2, 8, 2, 256, 64, 0)
+    ((jq, q), (jk, kc), (jv, vc)), (jl, lengths) = _decode_inputs(
+        case, dtype="bfloat16")
+    out = ops.decode_attention(q, kc, vc, lengths)
+    assert out.dtype == torch.bfloat16
+    _close(out, jops.decode_attention(jq, jk, jv, jl).astype(jnp.float32),
+           "bfloat16")
+
+
+def test_decode_length_zero_gives_zeros_like_the_pallas_kernel():
+    ((jq, q), (jk, kc), (jv, vc)), _ = _decode_inputs((2, 4, 2, 64, 32, 0))
+    lengths = np.array([0, 7], np.int32)
+    out = ops.decode_attention(q, kc, vc, torch.from_numpy(lengths))
+    assert torch.all(out[0] == 0)
+    _close(out, jops.decode_attention(jq, jk, jv, jnp.asarray(lengths)))
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    da.decode_attention.launches = fa.flash_attention_fwd.launches = 0
+    (_, q), (_, k), (_, v) = _qkv((1, 32, 32, 4, 2, 32))
+    ops.flash_attention(q, k, v)
+    ops.decode_attention(q[:, :1], k, v, torch.tensor([5], dtype=torch.int32))
+    assert da.decode_attention.launches == 0
+    assert fa.flash_attention_fwd.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# reference attention: the port's ref against repro.kernels.ref
+# ---------------------------------------------------------------------------
+
+def _cache_case(seed=3, b=2, c=16, h=4, kv=2, d=32, smax=64):
+    q, kc, vc = _arrays(seed, (b, c, h, d), (b, smax, kv, d), (b, smax, kv, d))
+    lengths = np.array([0, 24], np.int32)[:b]
+    return [_both(x) for x in (q, kc, vc)], (jnp.asarray(lengths),
+                                             torch.from_numpy(lengths))
+
+
+@pytest.mark.parametrize("causal,win,q_offset", [
+    (True, 0, 0), (False, 0, 0), (True, 24, 0), (True, 0, 40), (True, 8, -10)])
+def test_ref_attention(causal, win, q_offset):
+    (jq, q), (jk, k), (jv, v) = _qkv((2, 24, 64, 4, 2, 32), seed=5)
+    kw = dict(causal=causal, window=win, q_offset=q_offset)
+    _close(ref.attention(q, k, v, **kw), jref.attention(jq, jk, jv, **kw))
+
+
+@pytest.mark.parametrize("causal,win,chunk", [(True, 0, 16), (False, 0, 24),
+                                              (True, 12, 64)])
+def test_ref_chunked_attention(causal, win, chunk):
+    (jq, q), (jk, k), (jv, v) = _qkv((2, 40, 40, 4, 2, 32), seed=6)
+    kw = dict(causal=causal, window=win, chunk=chunk)
+    _close(ref.chunked_attention(q, k, v, **kw),
+           jref.chunked_attention(jq, jk, jv, **kw))
+
+
+@pytest.mark.parametrize("win", [0, 64])
+def test_ref_decode_attention(win):
+    ((jq, q), (jk, kc), (jv, vc)), (jl, lengths) = _decode_inputs(
+        (3, 4, 2, 128, 32, win), seed=7)
+    _close(ref.decode_attention(q, kc, vc, lengths, window=win),
+           jref.decode_attention(jq, jk, jv, jl, window=win))
+
+
+@pytest.mark.parametrize("name", ["chunk_cache_attention",
+                                  "chunk_cache_attention_chunked"])
+@pytest.mark.parametrize("win", [0, 10])
+def test_ref_chunk_cache_attention(name, win):
+    ((jq, q), (jk, kc), (jv, vc)), (jl, lengths) = _cache_case()
+    kw = {"window": win} if name == "chunk_cache_attention" \
+        else {"window": win, "chunk": 24}
+    _close(getattr(ref, name)(q, kc, vc, lengths, **kw),
+           getattr(jref, name)(jq, jk, jv, jl, **kw))
+
+
+def test_ref_chunk_cache_attention_impl_follows_the_reference():
+    assert ref.chunk_cache_attention_impl("chunked_naive") \
+        is ref.chunk_cache_attention_chunked
+    # the kernel backend ('pallas' in the reference) uses the materialized one
+    assert jref.chunk_cache_attention_impl("pallas") is jref.chunk_cache_attention
+    for impl in ("kernel", "xla"):
+        assert ref.chunk_cache_attention_impl(impl) is ref.chunk_cache_attention
+
+
+# ---------------------------------------------------------------------------
+# build: nvcc discovery, rebuild keys and failures, with a stand-in compiler
+# ---------------------------------------------------------------------------
+
+def _fake_nvcc(tmp_path, body):
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    nvcc = bindir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    return nvcc
+
+
+def test_build_compiles_each_source_once(tmp_path, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\n'
+                      'echo "ptxas info    : Used 32 registers"; : > "$2"\n')
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.find_nvcc() == str(nvcc)
+    reports = _build.build()
+    assert sorted(reports) == sorted(_build.SOURCES)
+    assert all("Used 32 registers" in r for r in reports.values())
+    libs = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert all(p.exists() for p in libs.values())
+    nvcc.write_text("#!/bin/sh\nexit 3\n")          # a rebuild would fail now
+    assert _build.build() == reports
+
+
+def test_build_failure_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, "echo 'error: no sm_90a here'; exit 2\n")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.build(["decode_attention"])
+    assert not any((tmp_path / "build").glob("*.so"))
+
+
+# ---------------------------------------------------------------------------
+# on the card: the CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _to(dev, *ts):
+    return [t.to(dev) for t in ts]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,win", FLASH_CASES)
+def test_gpu_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, d,
+                                        causal, win):
+    (_, q), (_, k), (_, v) = _qkv((b, sq, sk, h, kv, d), dtype=dtype)
+    q, k, v = _to(cuda, q, k, v)
+    n = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n + 1
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, window=win)
+    _close(out.cpu(), pout.float().cpu(), dtype)
+    _close(lse.cpu(), plse.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,smax,d,win", DECODE_CASES + [
+    (8, 32, 8, 2048, 128, 0), (8, 32, 8, 2048, 128, 256)])
+def test_gpu_decode_kernel_matches_plain(cuda, dtype, b, h, kv, smax, d, win):
+    ((_, q), (_, kc), (_, vc)), (_, lengths) = _decode_inputs(
+        (b, h, kv, smax, d, win), dtype=dtype)
+    q, kc, vc, lengths = _to(cuda, q, kc, vc, lengths)
+    qh = q.reshape(b, kv, h // kv, d)
+    n = da.decode_attention.launches
+    out = da.decode_attention(qh, kc, vc, lengths, window=win)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == n + 1
+    _close(out.cpu(), da.decode_attention_plain(qh, kc, vc, lengths,
+                                                window=win).float().cpu(), dtype)
+
+
+@pytest.mark.gpu
+def test_gpu_decode_length_zero_gives_zeros(cuda):
+    ((_, q), (_, kc), (_, vc)), _ = _decode_inputs((2, 4, 2, 64, 32, 0))
+    q, kc, vc = _to(cuda, q, kc, vc)
+    lengths = torch.tensor([0, 9], dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, kc, vc, lengths)
+    assert torch.all(out[0] == 0)
+    _close(out[1].cpu(), ref.decode_attention(q, kc, vc, lengths)[1].cpu())
+
+
+@pytest.mark.gpu
+def test_gpu_wrappers_raise_on_unsupported_inputs(cuda):
+    q = torch.zeros(1, 1, 4, 48, device=cuda)          # head dim 48
+    kc = torch.zeros(1, 16, 2, 48, device=cuda)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kc, kc, lengths)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, kc, kc)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), kc.half(), kc.half())
+

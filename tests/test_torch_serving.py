@@ -1,0 +1,226 @@
+"""The port's serving engine, execution contexts, oracles and chip smoke
+script against the JAX package's, on the same parameters and requests
+(``llama3-smoke``, float32, CPU).
+
+Every request arrives at t=0, so the schedule does not depend on measured
+latency and both engines must produce the same ``IterationRecord``
+schedule.  The JAX side runs ``impl="xla"`` where the kernel is not the
+point.  Cache tolerance: 1e-4 of the cache's largest entry (see
+tests/test_torch_models.py).
+"""
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import build_model
+from repro.serving import scheduler as jax_scheduler
+from repro.serving.context import build_context as jax_build_context
+from repro.serving.engine import Engine as JaxEngine
+from repro.serving.engine import bucket_chunk as jax_bucket_chunk
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.backends import cpu_wallclock, cuda_events
+from repro_torch.models import params_from_jax
+from repro_torch.serving import (Engine, SchedulerConfig,
+                                 build_context, bucket_chunk)
+from repro_torch.serving import scheduler as port_scheduler
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = 1e-4
+SCHED = dict(max_num_seqs=4, max_batch_tokens=64, chunk_size=32)
+
+
+@pytest.fixture(scope="module")
+def params():
+    """(cfg, jax cfg, jax params, the port's state dict of them)."""
+    cfg, jcfg = get_smoke_config("llama3-8b"), jax_smoke_config("llama3-8b")
+    jp = build_model(jcfg).init(jax.random.key(0))
+    return cfg, jcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+
+
+def _requests(module, specs, vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    return [module.Request(i, 0.0, rng.integers(0, vocab, p).tolist(), o)
+            for i, (p, o) in enumerate(specs)]
+
+
+def _close_scaled(port, expected):
+    expected = np.asarray(expected)
+    scale = float(np.abs(expected).max())
+    np.testing.assert_allclose(port.float().numpy() / scale, expected / scale,
+                               atol=TOL)
+
+
+def _serve_both(params, specs, max_seq, impl="kernel"):
+    cfg, jcfg, jp, state = params
+    jeng = JaxEngine(jcfg, sched_config=jax_scheduler.SchedulerConfig(**SCHED),
+                     max_seq=max_seq, params=jp, impl="xla")
+    jeng.run(_requests(jax_scheduler, specs, cfg.vocab_size))
+    eng = Engine(cfg, sched_config=SchedulerConfig(**SCHED), max_seq=max_seq,
+                 params=state, impl=impl, device="cpu")
+    reqs = _requests(port_scheduler, specs, cfg.vocab_size)
+    eng.run(reqs)
+    return jeng, eng, reqs
+
+
+# ---------------------------------------------------------------------------
+# scheduler and buckets
+# ---------------------------------------------------------------------------
+
+def test_scheduler_is_a_verbatim_copy():
+    # the sim-vs-engine claim rests on both running the same scheduler
+    assert Path(port_scheduler.__file__).read_text() == \
+        Path(jax_scheduler.__file__).read_text()
+
+
+def test_bucket_chunk_matches_reference():
+    for chunk_size in (32, 64, 256):
+        for c in range(1, 3 * chunk_size):
+            assert bucket_chunk(c, chunk_size) == jax_bucket_chunk(c, chunk_size)
+
+
+# ---------------------------------------------------------------------------
+# engine against the JAX engine
+# ---------------------------------------------------------------------------
+
+def test_engine_matches_jax_engine(params):
+    specs = [(40, 5), (9, 3), (57, 2), (23, 6), (31, 1), (64, 4)]
+    jeng, eng, reqs = _serve_both(params, specs, max_seq=128)
+    assert [(r.chunks, r.n_decodes) for r in eng.records] == \
+        [(r.chunks, r.n_decodes) for r in jeng.records]
+    assert all(r.done and r.generated == o for r, (_, o) in zip(reqs, specs))
+    assert all(r.model_s > 0 for r in eng.records)
+    for i, layer in enumerate(eng.cache):
+        for name in ("k", "v"):
+            _close_scaled(layer[name], jeng.cache["blocks"][0][name][i])
+
+
+def test_engine_bucket_padding_past_max_seq(params):
+    """A 36-token prompt in chunks of 32 leaves a 4-token chunk whose bucket
+    of 8 reaches past a 40-slot cache: the rows past the end are dropped,
+    as the JAX engine drops them."""
+    jeng, eng, reqs = _serve_both(params, [(36, 3)], max_seq=40)
+    assert reqs[0].done and eng.lengths[0] == 36 + 2
+    for i, layer in enumerate(eng.cache):
+        _close_scaled(layer["k"], jeng.cache["blocks"][0]["k"][i])
+
+
+def test_engine_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(get_smoke_config("llama3-8b"),
+               sched_config=SchedulerConfig(**SCHED), max_seq=64)
+
+
+# ---------------------------------------------------------------------------
+# self_attn execution contexts against the JAX contexts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+@pytest.mark.parametrize("backend", ["xla", "kernel", "chunked_naive"])
+def test_self_attn_context_matches_jax(params, phase, backend):
+    cfg, jcfg, jp, state = params
+    toks, reqs, ctx = (8, 2, 32) if phase == "prefill" else (1, 3, 48)
+    jmc = jax_build_context(jcfg, "self_attn", phase=phase, backend="xla")
+    mc = build_context(cfg, "self_attn", phase=phase, backend=backend,
+                       device="cpu")
+    specs = mc.abstract_inputs(toks, reqs, ctx)
+    assert [tuple(s.shape) for s in specs] == \
+        [tuple(s.shape) for s in jmc.abstract_inputs(toks, reqs, ctx)]
+    rng = np.random.default_rng(6)
+    arrays = [rng.standard_normal(s.shape, dtype=np.float32) for s in specs[:3]]
+    lengths = (np.array([0, 17], np.int32) if phase == "prefill"
+               else np.array([5, 47, 20], np.int32))
+    jattn = jp["blocks"][0]["attn"]
+    jparams = jax.tree.map(lambda a: a[0], jattn)
+    expected = jmc.fn(jparams, *[jnp.asarray(a) for a in arrays],
+                      jnp.asarray(lengths))
+    weights = {f"{n}_proj.w": torch.tensor(np.asarray(jattn[n]["w"][0]))
+               for n in ("q", "k", "v", "o")}
+    assert {k: tuple(v.shape) for k, v in weights.items()} == \
+        {k: tuple(s.shape) for k, s in mc.params.items()}
+    out = mc.fn(mc.module(weights), *[torch.from_numpy(a) for a in arrays],
+                torch.from_numpy(lengths))
+    np.testing.assert_allclose(out.numpy(), np.asarray(expected), atol=TOL,
+                               rtol=TOL)
+
+
+def test_context_materialize_is_seeded(params):
+    cfg = params[0]
+    mc = build_context(cfg, "self_attn", phase="decode", device="cpu")
+    a = mc.materialize(mc.abstract_inputs(1, 2, 16),
+                       torch.Generator().manual_seed(3))
+    b = mc.materialize(mc.abstract_inputs(1, 2, 16),
+                       torch.Generator().manual_seed(3))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert a[3].dtype == torch.int32 and not a[3].any()
+    w = mc.materialize(mc.params)
+    assert sorted(w) == sorted(mc.params) and float(w["q_proj.w"].std()) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# oracles
+# ---------------------------------------------------------------------------
+
+def test_oracles():
+    x = torch.ones(64, 64)
+    assert cpu_wallclock(torch.matmul, (x, x)) > 0
+    with pytest.raises((ValueError, RuntimeError)):
+        cuda_events(torch.matmul, (x, x), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py: its phases at llama3-smoke on the CPU, and its refusal to
+# run without a card
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_phases_on_cpu(capsys):
+    cs = _chip_smoke()
+    cfg, cpu = get_smoke_config("llama3-8b"), torch.device("cpu")
+    kernels = cs.phase_kernels(cfg, cpu)
+    serving = cs.phase_serving(cfg, cpu)
+    prefill = cs.phase_prefill(cfg, cpu)
+    measured = cs.phase_measure(cfg, cpu)
+    line = cs.kernels_line(kernels, serving, prefill)
+    assert [k["name"] for k in line["kernels"]] == ["decode_attention",
+                                                    "flash_attention_fwd"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in line["kernels"]:
+        assert set(k) == keys and k["launches"] == 0 and k["max_abs_err"] == 0
+        assert (ROOT / k["source"]).is_file()
+    assert serving["decode_iterations"] > 0 and len(serving["ttft_s"]) == 8
+    assert set(measured) == set(cs.MEASURE_POINTS)
+    assert "[4 serving]" in capsys.readouterr().out
+
+
+def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:      # the script alone, without the package
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        run = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
+        assert run.returncode != 0
+        assert '"ok": true' not in run.stdout
