@@ -5,19 +5,21 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's main path for llama3-8b at full width in bf16 (random
-weights from seed 0) and checks it, one line per phase:
+It drives the port's main paths for llama3-8b at full width in bf16 (random
+weights from seed 0) and checks them, one line per phase:
 
 1. device  — the card's name and count, its name and power limit from
              nvidia-smi; TF32 off for matmuls and convolutions.
-2. build   — both CUDA kernels compiled from src/repro_torch/csrc, with
-             nvcc's -Xptxas -v report.
+2. build   — the three CUDA kernels compiled from src/repro_torch/csrc, one
+             nvcc each, all at once, with nvcc's -Xptxas -v report.
 3. kernels — each kernel against its plain PyTorch version on the card: the
-             kernel-test cases in fp32 (tolerance 2e-5) and the main path's
-             shapes in bf16 (2e-2); times by CUDA events with the L2 cache
-             flushed before each call, beside the least time the card could
-             take (bytes at 3.35 TB/s, flops at 989 TFLOP/s bf16) and one
-             scaled_dot_product_attention call as a yardstick.
+             kernel-test cases in fp32 (tolerance 2e-5; the backward 1e-5
+             of the largest gradient) and the main paths' shapes in bf16
+             (2e-2); times by CUDA events with the L2 cache flushed before
+             each call, beside the least time the card could take (bytes at
+             3.35 TB/s, flops at 989 TFLOP/s bf16) and one PyTorch call
+             computing the same function as a yardstick
+             (scaled_dot_product_attention, or its autograd backward).
 4. serving — the Engine serves 8 requests (prompts of 128-1024 tokens, 32
              new tokens each) through the decode kernel; decode-kernel
              launches must equal layers x decode iterations and every logit
@@ -27,9 +29,22 @@ weights from seed 0) and checks it, one line per phase:
 5. prefill — Model.prefill on a 1024-token prompt through the flash kernel
              (one launch per layer), its last logits against the plain
              reference's (cosine >= 0.99).
-6. measure — the self_attn decode context timed by the cuda_events oracle.
-7. a JSON line listing every kernel with its launches on the main path, its
-   largest error against its plain version, and its times.
+5b. train  — llama3-8b at full width cut to 8 of its 32 layers (the only
+             cut: 12 bytes per parameter of bf16 weights and grads plus fp32
+             AdamW moments do not fit 80 GB at 32 layers) takes 6 AdamW
+             steps of 4 x 1024 tokens in 2 microbatches with remat, through
+             the flash forward and backward kernels: every loss and grad
+             norm finite, 8 x 2 x 6 = 96 backward calls and twice as many
+             forward launches (each layer's forward, then its recompute in
+             the backward); then one microbatch's gradients with the kernels
+             and with the plain attention agree (cosine >= 0.99 for every
+             parameter tensor).  Step time, tokens/s, the share of the bf16
+             peak and peak memory are printed beside the card.
+6. measure — the self_attn decode points, each timed twice, and one prefill
+             point by the cuda_events oracle (replay of a CUDA graph of
+             one call); the (8, 2048) decode point must exceed (1, 512).
+7. a JSON line listing every kernel with its launches on the main paths,
+   its largest error against its plain version, and its times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises and
 the script exits non-zero; without a CUDA device it exits 1 at once.  Each
@@ -59,6 +74,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving import (Engine, Request, SchedulerConfig,  # noqa: E402
                                  build_context)
+from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
+                               init_train_state, make_optimizer, make_train_step)
 
 #: H100 SXM data-sheet peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -72,6 +89,8 @@ FLASH_CASES = [(2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 8, 8, 32, True, 0
                (2, 128, 128, 4, 1, 64, True, 48), (1, 100, 100, 2, 2, 64, False, 0),
                (1, 64, 192, 4, 2, 32, True, 0)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the backward, max-scaled: |kernel - plain| / max|plain|
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 SCHED = SchedulerConfig(max_num_seqs=8, max_batch_tokens=512, chunk_size=256)
 MAX_SEQ = 2048
@@ -79,20 +98,38 @@ N_REQUESTS, NEW_TOKENS, PROMPT_LENS = 8, 32, (128, 1024)
 PREFILL_LEN = 1024
 WINDOW = 256                 # the windowed kernel cases
 MEASURE_POINTS = [(1, 512), (1, 2048), (8, 512), (8, 2048)]   # (reqs, ctx)
+PREFILL_POINT = (256, 1, 2048)                                 # (toks, reqs, ctx)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
+TRAIN_STEPS, MICROBATCHES, LEARNING_RATE = 6, 2, 3e-4
 
 SOURCES = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:78"),
            "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention_fwd.cu",
-                                   "src/repro/kernels/flash_attention.py:93")}
+                                   "src/repro/kernels/flash_attention.py:93"),
+           "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                   "src/repro/kernels/flash_attention.py:227")}
 
 
 def _zero_counts():
     da.decode_attention.launches = fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
 
 
 def _counts() -> tuple:
-    """(decode, flash) kernel launches since ``_zero_counts``."""
-    return da.decode_attention.launches, fa.flash_attention_fwd.launches
+    """(decode, flash forward, flash backward) kernel launches since
+    ``_zero_counts``."""
+    return (da.decode_attention.launches, fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd.launches)
+
+
+def _card(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if device.type != "cuda":
+        return "cpu (no card)"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
 
 
 def _require(ok: bool, what: str):
@@ -157,13 +194,11 @@ def phase_device(cfg, device) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = _card(device)
     print(f"[1 device] {kind} x{count}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; TF32 off")
-    print(smi.splitlines()[0])
-    return {"kind": kind, "count": count, "smi": smi.splitlines()[0]}
+    print(smi)
+    return {"kind": kind, "count": count, "smi": smi}
 
 
 def phase_build(cfg, device) -> dict:
@@ -220,14 +255,7 @@ def _flash_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
     res = {"max_abs_err": max(_err(out, pout, dtype, what),
                               _err(lse, plse, torch.float32, what + " lse"))}
     if timed:
-        qpos = torch.arange(sq)[:, None]
-        kpos = torch.arange(sk)[None, :]
-        mask = torch.ones(sq, sk, dtype=torch.bool)
-        if causal:
-            mask &= kpos <= qpos
-        if window:
-            mask &= kpos > qpos - window
-        pairs = int(mask.sum())
+        pairs = _pairs(sq, sk, causal, window)
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
             * q.element_size() + lse.numel() * 4
         res["bound_ms"], res["bound_by"] = _bound(nbytes, 4 * b * h * pairs * d,
@@ -241,6 +269,56 @@ def _flash_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
     return res
 
 
+def _pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the masks leave, per batch row and head."""
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return int(mask.sum())
+
+
+def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
+                    timed: bool):
+    q = _randn(rng, (b, sq, h, d), dtype, device)
+    k = _randn(rng, (b, sk, kv, d), dtype, device)
+    v = _randn(rng, (b, sk, kv, d), dtype, device)
+    do = _randn(rng, (b, sq, h, d), dtype, device)
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    what = f"flash_attention_bwd {(b, sq, sk, h, kv, d, causal, window)} {dtype}"
+    err = scaled = 0.0
+    for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
+        diff = float((g.float() - p.float()).abs().max())
+        err, scaled = max(err, diff), max(scaled, diff / float(p.float().abs().max()))
+        _require(scaled <= BWD_TOL[dtype],
+                 f"{what} {name} within {BWD_TOL[dtype]} of the largest plain "
+                 f"gradient ({scaled:.3g})")
+    res = {"max_abs_err": err, "max_scaled_err": scaled}
+    if timed:
+        pairs = _pairs(sq, sk, causal, window)
+        esz = q.element_size()
+        nbytes = (3 * q.numel() + 2 * k.numel() + out.numel() + do.numel()
+                  + 2 * v.numel()) * esz + 2 * lse.numel() * 4
+        res["bound_ms"], res["bound_by"] = _bound(nbytes, 10 * b * h * pairs * d,
+                                                  dtype)
+        res["ms"] = _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw), device)
+        res["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, **kw), device)
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        o = _sdpa(*leaves, is_causal=causal)
+        doh = do.transpose(1, 2)
+        res["library_ms"] = _time_ms(lambda: torch.autograd.grad(
+            o, leaves, doh, retain_graph=True), device)
+    return res
+
+
 def phase_kernels(cfg, device) -> dict:
     """Each kernel against its plain version; returns, per kernel, the
     largest error over all cases and the main path's times."""
@@ -248,12 +326,16 @@ def phase_kernels(cfg, device) -> dict:
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     g = cfg.n_heads // kv
     bf16 = torch.bfloat16
-    errs = {"decode_attention": [], "flash_attention_fwd": []}
+    errs = {"decode_attention": [], "flash_attention_fwd": [],
+            "flash_attention_bwd": []}
     for b, h, kvh, smax, d, win in DECODE_CASES:
         errs["decode_attention"].append(_decode_case(
             rng, b, kvh, h // kvh, smax, d, win, torch.float32, device, False))
     for b, sq, sk, h, kvh, d, causal, win in FLASH_CASES:
         errs["flash_attention_fwd"].append(_flash_case(
+            rng, b, sq, sk, h, kvh, d, causal, win, torch.float32, device, False))
+    for b, sq, sk, h, kvh, d, causal, win in FLASH_CASES[:3]:
+        errs["flash_attention_bwd"].append(_flash_bwd_case(
             rng, b, sq, sk, h, kvh, d, causal, win, torch.float32, device, False))
     b = SCHED.max_num_seqs
     main = {
@@ -261,20 +343,30 @@ def phase_kernels(cfg, device) -> dict:
                                          device, True),
         "flash_attention_fwd": _flash_case(rng, 1, PREFILL_LEN, PREFILL_LEN,
                                            cfg.n_heads, kv, hd, True, 0, bf16,
-                                           device, True)}
+                                           device, True),
+        "flash_attention_bwd": _flash_bwd_case(
+            rng, TRAIN_BATCH // MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads,
+            kv, hd, True, 0, bf16, device, True)}
     errs["decode_attention"].append(_decode_case(
         rng, b, kv, g, MAX_SEQ, hd, WINDOW, bf16, device, False))
     errs["flash_attention_fwd"].append(_flash_case(
         rng, 1, PREFILL_LEN, PREFILL_LEN, cfg.n_heads, kv, hd, True, WINDOW,
         bf16, device, False))
+    errs["flash_attention_bwd"].append(_flash_bwd_case(
+        rng, TRAIN_BATCH // MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, kv,
+        hd, True, WINDOW, bf16, device, False))
+    card = _card(device)
     for name, res in main.items():
-        res["max_abs_err"] = max([res["max_abs_err"]]
-                                 + [e["max_abs_err"] for e in errs[name]])
+        for key in ("max_abs_err", "max_scaled_err"):
+            if key in res:
+                res[key] = max([res[key]] + [e[key] for e in errs[name]])
+        scaled = (f", max scaled err {res['max_scaled_err']:.3g}"
+                  if "max_scaled_err" in res else "")
         print(f"[3 kernels] {name}: {len(errs[name]) + 1} cases agree with the "
-              f"plain version (max abs err {res['max_abs_err']:.3g}); main path "
-              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, sdpa "
-              f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']})")
+              f"plain version (max abs err {res['max_abs_err']:.3g}{scaled}); "
+              f"main path {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+              f"library {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
+              f"ms ({res['bound_by']}); {card}")
     return main
 
 
@@ -303,14 +395,15 @@ def phase_serving(cfg, device) -> dict:
     t0 = time.perf_counter()
     engine.run(requests)
     wall = time.perf_counter() - t0
-    launches, flash = _counts()
+    launches, flash, flash_bwd = _counts()
     decode_iters = sum(1 for r in engine.records if r.n_decodes)
     expect = cfg.n_layers * decode_iters if cuda else 0
     _require(launches == expect,
              f"decode-kernel launches {launches} == {expect} (layers x decode iterations)")
     # chunked prefill attends against the cache without the flash kernel,
     # as the reference dispatches it
-    _require(flash == 0, f"no flash-kernel launch while serving ({flash})")
+    _require(flash == flash_bwd == 0,
+             f"no flash-kernel launch while serving ({flash}, {flash_bwd})")
     _require(all(finite), "every logit of the run is finite")
     _require(all(r.done and r.generated == NEW_TOKENS for r in requests),
              "every request finished with its new tokens")
@@ -353,10 +446,11 @@ def phase_prefill(cfg, device) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    decode, launches = _counts()
+    decode, launches, backward = _counts()
     expect = cfg.n_layers if device.type == "cuda" else 0
-    _require(launches == expect and decode == 0,
-             f"flash-kernel launches {launches} == {expect}, decode {decode} == 0")
+    _require(launches == expect and decode == backward == 0,
+             f"flash-kernel launches {launches} == {expect}, decode {decode} "
+             f"and backward {backward} == 0")
     _require(bool(torch.isfinite(lk).all()), "prefill logits are finite")
     lx, _ = model.prefill(tokens, max_seq=MAX_SEQ, impl="xla")
     cos = float(F.cosine_similarity(lk, lx, dim=-1).min())
@@ -369,31 +463,124 @@ def phase_prefill(cfg, device) -> dict:
     return {"flash_launches": launches, "cosine": cos}
 
 
-def phase_measure(cfg, device) -> dict:
-    mc = build_context(cfg, "self_attn", phase="decode", backend="kernel",
-                       device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    attn = mc.module(mc.materialize(mc.params, gen))
-    out = {}
-    for reqs, ctx in MEASURE_POINTS:
-        x, kc, vc, lengths = mc.materialize(mc.abstract_inputs(1, reqs, ctx), gen)
-        # materialize leaves integer inputs at 0, which would time a
-        # one-token context; a full cache is what this point stands for
-        lengths.fill_(ctx - 1)
-        args = (attn, x, kc, vc, lengths)
-        if device.type == "cuda":
-            out[(reqs, ctx)] = cuda_events(mc.fn, args, device=device)
-        else:
-            out[(reqs, ctx)] = cpu_wallclock(mc.fn, args)
-    oracle = "cuda_events" if device.type == "cuda" else "cpu_wallclock"
-    print(f"[6 measure] self_attn decode context, {oracle}: " + ", ".join(
-        f"reqs={r} ctx={c}: {t * 1e6:.1f} us" for (r, c), t in out.items()))
+def phase_train(cfg, device, *, seq: int = TRAIN_SEQ,
+                steps: int = TRAIN_STEPS) -> dict:
+    """AdamW steps of llama3 cut to TRAIN_LAYERS layers through the kernel
+    backend, then one microbatch's gradients with the kernels against the
+    plain attention's.  ``seq`` and ``steps`` let the CPU tests run it
+    small."""
+    tcfg = cfg.with_overrides(n_layers=TRAIN_LAYERS)
+    cuda = device.type == "cuda"
+    model = Model(tcfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(0))
+    state = init_train_state(model, make_optimizer(tcfg.optimizer))
+    step_fn = make_train_step(model, microbatches=MICROBATCHES,
+                              learning_rate=LEARNING_RATE, impl="kernel")
+    stream = TokenStream(DataConfig(tcfg.vocab_size, TRAIN_BATCH, seq))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, gnorms, times = [], [], []
+    _zero_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, stream.batch_at(i))
+        losses.append(float(metrics["loss"]))        # waits for the step
+        gnorms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    decode, fwd, bwd = _counts()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    calls = TRAIN_LAYERS * MICROBATCHES * steps
+    # remat: each layer's forward runs again inside its backward
+    expect_bwd, expect_fwd = (calls, 2 * calls) if cuda else (0, 0)
+    _require(bwd == expect_bwd and fwd == expect_fwd and decode == 0,
+             f"flash backward calls {bwd} == {expect_bwd} (layers x microbatches "
+             f"x steps), forward launches {fwd} == {expect_fwd} (twice that: "
+             f"remat), decode {decode} == 0")
+    _require(all(np.isfinite(losses + gnorms)),
+             f"every loss and grad norm is finite ({losses}, {gnorms})")
+
+    tokens = TRAIN_BATCH * seq
+    n_params = sum(p.numel() for p in model.parameters())
+    n_layer_params = sum(p.numel() for p in model.layers.parameters())
+    flops = 6 * n_params * tokens + 2 * n_layer_params * tokens
+    step_s = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    card = _card(device)
+    print(f"[5b train] {tcfg.name} at full width, cut to {TRAIN_LAYERS} of "
+          f"{cfg.n_layers} layers (the only cut), {n_params / 1e9:.3f} B "
+          f"parameters, {tcfg.dtype}, AdamW, remat, {steps} steps of "
+          f"{TRAIN_BATCH} x {seq} tokens in {MICROBATCHES} microbatches; {card}")
+    print("  loss " + " ".join(f"{x:.4f}" for x in losses))
+    print("  grad_norm " + " ".join(f"{x:.4f}" for x in gnorms))
+    print(f"  step {step_s:.4f} s (median after the first, host clock; first "
+          f"{times[0]:.3f} s), {tokens / step_s:.0f} tokens/s, "
+          f"{flops / step_s / PEAK_FLOPS[torch.bfloat16] * 100:.2f} % of the "
+          f"989 TFLOP/s bf16 peak (6 P T + 2 P_layers T), peak memory "
+          f"{peak / 2**30:.2f} GiB; flash launches forward {fwd}, backward {bwd}; "
+          f"{card}")
+
+    mb = {k: v[:TRAIN_BATCH // MICROBATCHES]
+          for k, v in stream.batch_at(steps).items()}
+    params = list(model.parameters())
+    gk = torch.autograd.grad(model.loss(mb, impl="kernel")[0], params)
+    gx = torch.autograd.grad(model.loss(mb, impl="xla")[0], params)
+    cos = [float(F.cosine_similarity(a.float().flatten(), b.float().flatten(),
+                                     dim=0)) for a, b in zip(gk, gx)]
+    _require(min(cos) >= 0.99, f"gradient cosine kernel vs plain >= 0.99 for "
+             f"every parameter tensor (min {min(cos):.5f})")
+    print(f"  one microbatch's gradients, kernel vs plain attention: min cosine "
+          f"{min(cos):.6f} over {len(cos)} tensors")
+    out = {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+           "first_step_s": times[0], "tokens_per_s": tokens / step_s,
+           "peak_bytes": peak, "flash_fwd_launches": fwd,
+           "flash_bwd_launches": bwd, "min_cosine": min(cos)}
+    del model, state, step_fn, gk, gx
+    _release(device)
     return out
 
 
-def kernels_line(kernels: dict, serving: dict, prefill: dict) -> dict:
+def phase_measure(cfg, device) -> dict:
+    """Each decode point twice and one prefill point through the oracle:
+    cuda_events (a CUDA graph's replay) on the card, cpu_wallclock here."""
+    cuda = device.type == "cuda"
+    oracle = cuda_events if cuda else cpu_wallclock
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for phase, points in (("decode", [(1, r, c) for r, c in MEASURE_POINTS]),
+                          ("prefill", [PREFILL_POINT])):
+        mc = build_context(cfg, "self_attn", phase=phase, backend="kernel",
+                           device=device)
+        attn = mc.module(mc.materialize(mc.params, gen))
+        for toks, reqs, ctx in points:
+            x, kc, vc, lengths = mc.materialize(mc.abstract_inputs(toks, reqs, ctx),
+                                                gen)
+            # materialize leaves integer inputs at 0, which would time an
+            # empty context; a full cache is what this point stands for
+            lengths.fill_(ctx - toks)
+            args = (attn, x, kc, vc, lengths)
+            out[(phase, toks, reqs, ctx)] = [oracle(mc.fn, args, device=device)
+                                             if cuda else oracle(mc.fn, args)
+                                             for _ in range(2)]
+    low, high = out[("decode", 1, 1, 512)], out[("decode", 1, 8, 2048)]
+    if cuda:
+        _require(min(high) > max(low), f"decode point (8, 2048) {high} above "
+                 f"(1, 512) {low}")
+    print(f"[6 measure] self_attn, {oracle.__name__}, two measurements each: "
+          + "; ".join(f"{ph} toks={t} reqs={r} ctx={c}: "
+                      + ", ".join(f"{x * 1e6:.1f}" for x in xs) + " us"
+                      for (ph, t, r, c), xs in out.items())
+          + f"; {_card(device)}")
+    return out
+
+
+def kernels_line(kernels: dict, serving: dict, prefill: dict,
+                 train: dict) -> dict:
+    """Launches are counted on the main paths: decode while serving, the
+    flash forward over the prefill and the train steps, the backward over
+    the train steps."""
     launches = {"decode_attention": serving["decode_launches"],
-                "flash_attention_fwd": prefill["flash_launches"]}
+                "flash_attention_fwd": prefill["flash_launches"]
+                + train["flash_fwd_launches"],
+                "flash_attention_bwd": train["flash_bwd_launches"]}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -423,9 +610,10 @@ def main() -> int:
     kernels = phase_kernels(cfg, device)
     serving = phase_serving(cfg, device)
     prefill = phase_prefill(cfg, device)
+    train = phase_train(cfg, device)
     phase_measure(cfg, device)
     print(f"[7] all phases passed in {time.perf_counter() - t0:.1f} s")
-    kernels_line(kernels, serving, prefill)
+    kernels_line(kernels, serving, prefill, train)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -18,21 +18,26 @@ from repro_torch.kernels import flash_attention as fa
 # ---------------------------------------------------------------------------
 
 class FlashAttention(torch.autograd.Function):
-    """The flash forward as an autograd node.  Its backward is the flash
-    backward kernel, which only training uses and which is not ported yet
-    (ROADMAP Queue 2 item 3)."""
+    """The flash forward as an autograd node whose backward is the flash
+    backward kernel.  The forward saves (q, k, v, out, lse); the backward
+    rebuilds P from the LSE and returns dK/dV per KV head directly, where
+    the reference's ``_bwd_vjp`` sums per-query-head grads over each group."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
-        out, _ = fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                          q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the flash-attention backward kernel is not ported yet "
-            "(ROADMAP Queue 2 item 3: training)")
+        q, k, v, out, lse = ctx.saved_tensors
+        # an upstream grad may be expanded (stride 0); the kernel wants rows
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                            **ctx.masks)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,

@@ -109,13 +109,25 @@ def _write_chunk(cache: torch.Tensor, new: torch.Tensor,
     """cache (B,Smax,...) <- new (B,C,...) at rows [lengths, lengths+C), in
     place.  Rows at or past Smax are dropped, as JAX's scatter drops them
     silently: bucket padding can reach past the cache, and an index out of
-    range would be a device-side assert on the card."""
+    range would be a device-side assert on the card.
+
+    The drop keeps shapes static, so the write never waits for the device
+    and can be captured in a CUDA graph: each dropped row is sent to the
+    last slot carrying exactly the value that slot ends with (the chunk's
+    row that lands there, else the slot's current value), so the writes
+    that meet there agree."""
     b, c = new.shape[:2]
-    cols = lengths.to(cache.device).long()[:, None] \
-        + torch.arange(c, device=cache.device)
-    rows = torch.arange(b, device=cache.device)[:, None].expand(b, c)
-    keep = cols < cache.shape[1]
-    cache[rows[keep], cols[keep]] = new[keep].to(cache.dtype)
+    last = cache.shape[1] - 1
+    lengths = lengths.to(cache.device).long()
+    cols = lengths[:, None] + torch.arange(c, device=cache.device)
+    rows = torch.arange(b, device=cache.device)
+    lands = (lengths <= last) & (lengths + c > last)
+    landing = new[rows, (last - lengths).clamp(0, c - 1)].to(cache.dtype)
+    tail = torch.where(lands.view((b,) + (1,) * (new.dim() - 2)), landing,
+                       cache[:, last])
+    keep = (cols <= last).view((b, c) + (1,) * (new.dim() - 2))
+    vals = torch.where(keep, new.to(cache.dtype), tail[:, None])
+    cache[rows[:, None], cols.clamp(max=last)] = vals
     return cache
 
 

@@ -1,5 +1,5 @@
-"""Public model API: ``Model(cfg)`` — forward, full-sequence prefill,
-chunked prefill, one-token decode and zeroed caches.
+"""Public model API: ``Model(cfg)`` — forward, training loss, full-sequence
+prefill, chunked prefill, one-token decode and zeroed caches.
 
 Counterpart of ``repro.models.zoo`` for dense decoders.  Submodule names
 follow the reference trace's scopes (``layers.{i}.self_attn.q_proj``, ...)
@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
@@ -72,13 +73,49 @@ class Model(nn.Module):
     # forward (train / full-sequence)
     # ------------------------------------------------------------------
 
-    def forward(self, tokens, *, impl: str = "auto") -> torch.Tensor:
-        """tokens (B,S) -> logits (B,S,V) float32."""
+    def forward(self, tokens, *, impl: str = "auto",
+                remat: Optional[bool] = None) -> torch.Tensor:
+        """tokens (B,S) -> logits (B,S,V) float32.
+
+        ``remat`` (default ``cfg.remat``) recomputes each layer in the
+        backward instead of keeping its activations, as the reference's
+        ``jax.checkpoint`` around its layer period does; it applies only
+        while autograd records."""
+        remat = self.cfg.remat if remat is None else remat
         x = self.embed(self._tokens(tokens))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for layer in self.layers:
-            x = layer(x, positions, impl=impl)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, positions, impl=impl,
+                               use_reentrant=False)
+            else:
+                x = layer(x, positions, impl=impl)
         return self._head(x)
+
+    # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+
+    def loss(self, batch: Mapping[str, Any], *, impl: str = "auto",
+             remat: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross-entropy over labels >= 0, plus the MoE
+        auxiliary terms (zero for dense layers), as the reference's
+        ``Model.loss``.  batch: ``tokens`` and ``labels`` (B,S).  Returns
+        (total, metrics) with ``ce``, ``load_balance``, ``router_z`` and
+        ``tokens``; the metrics are detached."""
+        logits = self.forward(batch["tokens"], impl=impl, remat=remat)
+        labels = self._tokens(batch["labels"])
+        mask = (labels >= 0).float()
+        safe = labels.clamp(min=0)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+        ce = ((lse - ll) * mask).sum() / mask.sum().clamp(min=1.0)
+        zero = torch.zeros((), device=logits.device)
+        aux = {"load_balance": zero, "router_z": zero}
+        total = ce + 0.01 * aux["load_balance"] + 1e-3 * aux["router_z"]
+        metrics = {"ce": ce.detach(), **aux, "tokens": mask.sum()}
+        return total, metrics
 
     # ------------------------------------------------------------------
     # prefill -> cache

@@ -4,12 +4,15 @@ package's, on the same numpy inputs.
 On the CPU every kernel wrapper runs its plain PyTorch version; the JAX side
 runs the Pallas kernels in interpret mode, as tests/test_kernels.py does.
 Tolerances are those of tests/test_kernels.py: 2e-5 in float32, 2e-2 in
-bfloat16 (outputs rounded to bf16 at different places).  Tests marked
+bfloat16 (outputs rounded to bf16 at different places); the backward is
+held max-scaled (|a - b| / max|b|) at 2e-6 in float32, as
+``test_pallas_flash_backward`` holds it.  Tests marked
 ``gpu`` hold the CUDA kernels against their plain versions on a card.
 """
 import math
 import stat
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,12 +126,81 @@ def test_flash_fully_masked_row_is_zero_like_the_pallas_kernel():
     _close(out, jref.attention(jq, jk, jv, **kw))
 
 
-def test_flash_backward_is_not_ported():
-    (_, q), (_, k), (_, v) = _qkv((1, 16, 16, 2, 1, 32))
-    q.requires_grad_(True)
-    out = ops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        out.sum().backward()
+def _scaled_close(port, expected, tol):
+    """Max-scaled agreement, as tests/test_kernels.py holds the backward:
+    |port - expected| / max|expected| <= tol."""
+    expected = np.asarray(expected, np.float32)
+    scale = float(np.abs(expected).max()) + 1e-6
+    np.testing.assert_allclose(port.float().numpy() / scale, expected / scale,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,win", FLASH_CASES[:3])
+def test_flash_backward_matches_jax(b, sq, sk, h, kv, d, causal, win):
+    """The loss of tests/test_kernels.py through ``ops.flash_attention``'s
+    autograd, and through ``flash_attention_bwd_plain`` by hand, against
+    jax.grad of the Pallas kernel (interpret mode); max-scaled 2e-6."""
+    (jq, q), (jk, k), (jv, v) = _qkv((b, sq, sk, h, kv, d))
+
+    def loss(q, k, v):
+        return (jops.flash_attention(q, k, v, causal, win) * (q.sum() + 1.0)).sum()
+    expected = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (ops.flash_attention(*leaves, causal, win) * (leaves[0].sum() + 1)).sum().backward()
+    for t, e in zip(leaves, expected):
+        _scaled_close(t.grad, e, 2e-6)
+
+    # d loss / d out = q.sum() + 1 everywhere; q.sum() adds out.sum() to dq
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, window=win)
+    do = torch.full_like(out, float(q.sum()) + 1.0)
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                              causal=causal, window=win)
+    for t, e in zip((dq + out.sum(), dk, dv), expected):
+        _scaled_close(t, e, 2e-6)
+
+
+def _vjp_both(case, dtype="float32", seed=4, **kw):
+    """(port dq/dk/dv from ``flash_attention_bwd_plain``, JAX's from
+    jax.vjp of the Pallas kernel) for one random cotangent."""
+    b, sq, sk, h, kv, d = case
+    (jq, q), (jk, k), (jv, v) = _qkv(case, seed=seed, dtype=dtype)
+    (jdo, do), = [_both(x, dtype) for x in _arrays(seed + 1, (b, sq, h, d))]
+    causal, window, q_offset = (kw.get(n, dflt) for n, dflt in
+                                (("causal", True), ("window", 0), ("q_offset", 0)))
+    _, vjp = jax.vjp(lambda q, k, v: jops.flash_attention(
+        q, k, v, causal, window, q_offset), jq, jk, jv)
+    expected = vjp(jdo)
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    port = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    return port, [np.asarray(e.astype(jnp.float32)) for e in expected]
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 2)])
+def test_flash_backward_gqa_groups_match_jax(h, kv):
+    """Groups of 1, 2 and 4: the port's per-KV-head dK/dV against the
+    reference's per-query-head grads summed in its wrapper; 2e-6."""
+    port, expected = _vjp_both((2, 96, 96, h, kv, 32), window=40)
+    for t, e in zip(port, expected):
+        assert t.shape == e.shape
+        _scaled_close(t, e, 2e-6)
+
+
+def test_flash_backward_bf16():
+    """bf16 in and out: grads rounded to bf16 at different places; 2e-2."""
+    port, expected = _vjp_both((1, 128, 128, 4, 2, 64), dtype="bfloat16")
+    for t, e in zip(port, expected):
+        assert t.dtype == torch.bfloat16
+        _scaled_close(t, e, 2e-2)
+
+
+def test_flash_backward_fully_masked_rows_give_zero_grads():
+    # the forward's fully-masked case: the first 8 queries see no key
+    kw = dict(causal=True, window=4, q_offset=-8)
+    (dq, dk, dv), expected = _vjp_both((1, 16, 64, 2, 1, 32), **kw)
+    assert torch.all(dq[:, :8] == 0) and torch.isfinite(dq).all()
+    for t, e in zip((dq, dk, dv), expected):
+        _scaled_close(t, e, 2e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -164,11 +236,15 @@ def test_decode_length_zero_gives_zeros_like_the_pallas_kernel():
 
 def test_cpu_wrappers_launch_no_kernel():
     da.decode_attention.launches = fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
     (_, q), (_, k), (_, v) = _qkv((1, 32, 32, 4, 2, 32))
-    ops.flash_attention(q, k, v)
-    ops.decode_attention(q[:, :1], k, v, torch.tensor([5], dtype=torch.int32))
+    q.requires_grad_(True)
+    ops.flash_attention(q, k, v).sum().backward()
+    ops.decode_attention(q[:, :1].detach(), k, v,
+                         torch.tensor([5], dtype=torch.int32))
     assert da.decode_attention.launches == 0
     assert fa.flash_attention_fwd.launches == 0
+    assert fa.flash_attention_bwd.launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -334,3 +410,46 @@ def test_gpu_wrappers_raise_on_unsupported_inputs(cuda):
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), kc.half(), kc.half())
 
+
+
+#: the backward on the card: fp32 within 1e-5 and bf16 within 2e-2 of the
+#: plain version, max-scaled (sums in another order; bf16 outputs rounded)
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,win,q_offset", [
+    c + (0,) for c in FLASH_CASES] + [(1, 16, 64, 2, 1, 32, True, 4, -8),
+                                     (2, 1024, 1024, 32, 8, 128, True, 0, 0),
+                                     (1, 512, 512, 32, 8, 128, True, 256, 0)])
+def test_gpu_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, d,
+                                            causal, win, q_offset):
+    (_, q), (_, k), (_, v) = _qkv((b, sq, sk, h, kv, d), dtype=dtype)
+    do, = [_both(x, dtype)[1] for x in _arrays(9, (b, sq, h, d))]
+    q, k, v, do = _to(cuda, q, k, v, do)
+    kw = dict(causal=causal, window=win, q_offset=q_offset)
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    n = fa.flash_attention_bwd.launches
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == n + 1
+    plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for t, p in zip(grads, plain):
+        assert t.dtype == p.dtype and t.shape == p.shape
+        _scaled_close(t.cpu(), p.float().cpu(), BWD_TOL[dtype])
+    if q_offset < 0:
+        assert torch.all(grads[0][:, :-q_offset] == 0)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_autograd_runs_both_kernels(cuda):
+    (_, q), (_, k), (_, v) = _qkv((2, 128, 128, 4, 2, 64), dtype="bfloat16")
+    leaves = [t.to(cuda).requires_grad_(True) for t in (q, k, v)]
+    n_fwd, n_bwd = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    ops.flash_attention(*leaves).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n_fwd + 1
+    assert fa.flash_attention_bwd.launches == n_bwd + 1
+    assert all(t.grad.dtype == torch.bfloat16 and torch.isfinite(t.grad).all()
+               for t in leaves)

@@ -189,3 +189,20 @@ def test_write_chunk_drops_rows_past_max_seq_like_jax():
     out = _write_chunk(torch.from_numpy(cache.copy()), torch.from_numpy(new),
                        torch.from_numpy(lengths))
     np.testing.assert_array_equal(out.numpy(), np.asarray(expected))
+
+
+@pytest.mark.parametrize("lengths,c", [([9, 3], 4), ([10, 12], 3), ([0, 2], 12),
+                                       ([7, 0], 3)])
+def test_write_chunk_without_a_host_sync_matches_jax(lengths, c):
+    """Dropped rows go to the last slot with the value it ends with, so the
+    write keeps static shapes: a chunk that lands on the last slot, one
+    wholly past the end, one longer than the cache, one inside it."""
+    rng = np.random.default_rng(len(lengths) + c + lengths[0])
+    cache = rng.standard_normal((2, 10, 2, 4), dtype=np.float32)
+    new = rng.standard_normal((2, c, 2, 4), dtype=np.float32)
+    lengths = np.array(lengths, np.int32)
+    expected = jax_write_chunk(jnp.asarray(cache), jnp.asarray(new),
+                               jnp.asarray(lengths))
+    out = _write_chunk(torch.from_numpy(cache.copy()), torch.from_numpy(new),
+                       torch.from_numpy(lengths))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(expected))

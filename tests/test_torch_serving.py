@@ -179,6 +179,42 @@ def test_oracles():
         cuda_events(torch.matmul, (x, x), device="cpu")
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_gpu_cuda_events_captures_self_attn_contexts(params, phase):
+    """Both contexts run without a host sync, so the oracle captures one
+    call in a CUDA graph; the replays write the same cache as one eager
+    call (the writes are idempotent for fixed lengths)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cfg = params[0]
+    mc = build_context(cfg, "self_attn", phase=phase, backend="kernel",
+                       device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    attn = mc.module(mc.materialize(mc.params, gen))
+    toks, ctx = (24, 40) if phase == "prefill" else (1, 48)
+    x, kc, vc, lengths = mc.materialize(mc.abstract_inputs(toks, 2, ctx), gen)
+    lengths.copy_(torch.tensor([ctx - toks, 3], dtype=torch.int32))
+    eager_k = kc.clone()
+    eager = mc.fn(attn, x, eager_k, vc.clone(), lengths)
+    seconds = cuda_events(mc.fn, (attn, x, kc, vc, lengths), repeats=5)
+    assert 0 < seconds < 1
+    torch.testing.assert_close(kc, eager_k)
+    torch.testing.assert_close(mc.fn(attn, x, kc, vc, lengths), eager)
+
+
+@pytest.mark.gpu
+def test_gpu_cuda_events_refuses_a_call_with_a_host_sync():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    x = torch.ones(8, device="cuda")
+
+    def masked_sum(t):
+        return t[t > 0].sum()       # the mask's shape needs the host
+    with pytest.raises(RuntimeError, match="masked_sum cannot be captured"):
+        cuda_events(masked_sum, (x,))
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py: its phases at llama3-smoke on the CPU, and its refusal to
 # run without a card
@@ -198,18 +234,47 @@ def test_chip_smoke_phases_on_cpu(capsys):
     kernels = cs.phase_kernels(cfg, cpu)
     serving = cs.phase_serving(cfg, cpu)
     prefill = cs.phase_prefill(cfg, cpu)
+    train = cs.phase_train(cfg, cpu, seq=32)
     measured = cs.phase_measure(cfg, cpu)
-    line = cs.kernels_line(kernels, serving, prefill)
-    assert [k["name"] for k in line["kernels"]] == ["decode_attention",
-                                                    "flash_attention_fwd"]
+    line = cs.kernels_line(kernels, serving, prefill, train)
+    assert [k["name"] for k in line["kernels"]] == [
+        "decode_attention", "flash_attention_fwd", "flash_attention_bwd"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in line["kernels"]:
         assert set(k) == keys and k["launches"] == 0 and k["max_abs_err"] == 0
         assert (ROOT / k["source"]).is_file()
+        path, line_no = k["replaces"].split(":")
+        assert "pallas_call" in "".join(
+            (ROOT / path).read_text().splitlines()[int(line_no) - 1:int(line_no) + 40])
     assert serving["decode_iterations"] > 0 and len(serving["ttft_s"]) == 8
-    assert set(measured) == set(cs.MEASURE_POINTS)
-    assert "[4 serving]" in capsys.readouterr().out
+    assert len(train["losses"]) == cs.TRAIN_STEPS and train["min_cosine"] > 0.999
+    assert set(measured) == {("decode", 1, r, c) for r, c in cs.MEASURE_POINTS} \
+        | {("prefill",) + cs.PREFILL_POINT}
+    assert all(len(v) == 2 and min(v) > 0 for v in measured.values())
+    out = capsys.readouterr().out
+    assert "[4 serving]" in out and "[5b train]" in out and "8 of 3 layers" in out
+
+
+def test_chip_smoke_train_counts_remat_launches(monkeypatch):
+    """The train phase's count check, with the plain versions counted as the
+    kernels would be: remat runs every layer's flash forward twice."""
+    cs = _chip_smoke()
+    counted = {"fwd": 0, "bwd": 0}
+    for name, key in (("flash_attention_fwd_plain", "fwd"),
+                      ("flash_attention_bwd_plain", "bwd")):
+        plain = getattr(cs.fa, name)
+
+        def wrapped(*a, _plain=plain, _key=key, **kw):
+            counted[_key] += 1
+            return _plain(*a, **kw)
+        monkeypatch.setattr(cs.fa, name, wrapped)
+    cs.phase_train(get_smoke_config("llama3-8b"), torch.device("cpu"), seq=16,
+                   steps=2)
+    per_step = cs.TRAIN_LAYERS * cs.MICROBATCHES
+    # 2 steps, then one microbatch's gradients through the kernel backend
+    assert counted == {"fwd": 2 * (2 * per_step + cs.TRAIN_LAYERS),
+                       "bwd": 2 * per_step + cs.TRAIN_LAYERS}
 
 
 def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
