@@ -5,12 +5,13 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's main paths for llama3-8b at full width in bf16 (random
-weights from seed 0) and checks them, one line per phase:
+It drives the port's main paths for llama3-8b and falcon-mamba-7b at full
+width in bf16 (random weights from seed 0) and checks them, one line per
+phase:
 
 1. device  — the card's name and count, its name and power limit from
              nvidia-smi; TF32 off for matmuls and convolutions.
-2. build   — the three CUDA kernels compiled from src/repro_torch/csrc, one
+2. build   — the four CUDA kernels compiled from src/repro_torch/csrc, one
              nvcc each, all at once, with nvcc's -Xptxas -v report.
 3. kernels — each kernel against its plain PyTorch version on the card: the
              kernel-test cases in fp32 (tolerance 2e-5; the backward 1e-5
@@ -20,6 +21,14 @@ weights from seed 0) and checks them, one line per phase:
              3.35 TB/s, flops at 989 TFLOP/s bf16) and one PyTorch call
              computing the same function as a yardstick
              (scaled_dot_product_attention, or its autograd backward).
+3b. scan   — the selective-scan kernel against its plain version: the
+             kernel-test cases in fp32 with h0 (5e-5) and falcon-mamba's
+             shapes in bf16 (2e-2; prefill B=1 at S=256 and 1024, decode
+             B=8 at S=1 with h0), y and the final state both; times beside
+             the least time the card could take (bytes at 3.35 TB/s, fp32
+             flops at 67 TFLOP/s, one exp per state entry and step at 16
+             per clock per SM); no single PyTorch call computes a selective
+             scan, so it has no library yardstick.
 4. serving — the Engine serves 8 requests (prompts of 128-1024 tokens, 32
              new tokens each) through the decode kernel; decode-kernel
              launches must equal layers x decode iterations and every logit
@@ -43,7 +52,23 @@ weights from seed 0) and checks them, one line per phase:
 6. measure — the self_attn decode points, each timed twice, and one prefill
              point by the cuda_events oracle (replay of a CUDA graph of
              one call); the (8, 2048) decode point must exceed (1, 512).
-7. a JSON line listing every kernel with its launches on the main paths,
+7. mamba serving — after llama3's weights are released, the Engine serves
+             falcon-mamba-7b at full depth (64 layers) with the requests of
+             phase 4: exact-length prefill chunks, scan launches equal to
+             layers x (prefill chunks + decode iterations), every logit
+             finite; then one decode step on copies of the final state with
+             the kernel and with the plain scan (cosine >= 0.99 per row).
+8. mamba prefill — Model.prefill on a 1024-token prompt (one scan launch per
+             layer) against the plain scan: each layer's mixer on the
+             kernel path's own input (cosine >= 0.999 for outputs and
+             states), and the whole prefill in float32 (cosine >= 0.99 for
+             the last logits and every layer's SSM state); the bf16
+             end-to-end cosines are printed, not held (64 random layers
+             amplify bf16 rounding as much between two plain scan orders).
+9. mamba measure — the mamba context's prefill points (256 and 1024
+             tokens, 1 request) and decode points (1 and 8 requests), each
+             timed twice by cuda_events; (1024, 1) must exceed (256, 1).
+10. a JSON line listing every kernel with its launches on the main paths,
    its largest error against its plain version, and its times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises and
@@ -71,7 +96,10 @@ from repro_torch.core.backends import cpu_wallclock, cuda_events  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.serving import (Engine, Request, SchedulerConfig,  # noqa: E402
                                  build_context)
 from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
@@ -80,6 +108,11 @@ from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
 #: H100 SXM data-sheet peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: exp results per clock per SM (the SFU's rate for compute capability 9.0
+#: in NVIDIA's arithmetic-throughput table), and the H100 SXM's SMs and top
+#: SM clock, used where no card reports its own
+EXP_PER_CLOCK_SM = 16
+NOMINAL_SMS, NOMINAL_SM_HZ = 132, 1.98e9
 
 #: the cases of tests/test_kernels.py: (b, h, kv, smax, d, window) and
 #: (b, sq, sk, h, kv, d, causal, window)
@@ -89,6 +122,11 @@ FLASH_CASES = [(2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 8, 8, 32, True, 0
                (2, 128, 128, 4, 1, 64, True, 48), (1, 100, 100, 2, 2, 64, False, 0),
                (1, 64, 192, 4, 2, 32, True, 0)]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the scan: tests/test_kernels.py test_pallas_mamba_scan's (b, s, di, n)
+#: cases, held at its 5e-5 in fp32
+SCAN_CASES = [(2, 64, 32, 8), (1, 300, 64, 16), (2, 50, 16, 4)]
+SCAN_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+SCAN_PREFILL_LENS = (256, 1024)
 #: the backward, max-scaled: |kernel - plain| / max|plain|
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -101,25 +139,30 @@ MEASURE_POINTS = [(1, 512), (1, 2048), (8, 512), (8, 2048)]   # (reqs, ctx)
 PREFILL_POINT = (256, 1, 2048)                                 # (toks, reqs, ctx)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
 TRAIN_STEPS, MICROBATCHES, LEARNING_RATE = 6, 2, 3e-4
+MAMBA = "falcon-mamba-7b"
+MAMBA_PREFILL_POINTS = [(256, 1), (1024, 1)]                   # (toks, reqs)
+MAMBA_DECODE_REQS = (1, 8)
 
 SOURCES = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:78"),
            "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention_fwd.cu",
                                    "src/repro/kernels/flash_attention.py:93"),
            "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
-                                   "src/repro/kernels/flash_attention.py:227")}
+                                   "src/repro/kernels/flash_attention.py:227"),
+           "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                          "src/repro/kernels/mamba_scan.py:62")}
 
 
 def _zero_counts():
     da.decode_attention.launches = fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.launches = ms.mamba_scan.launches = 0
 
 
 def _counts() -> tuple:
-    """(decode, flash forward, flash backward) kernel launches since
+    """(decode, flash forward, flash backward, scan) kernel launches since
     ``_zero_counts``."""
     return (da.decode_attention.launches, fa.flash_attention_fwd.launches,
-            fa.flash_attention_bwd.launches)
+            fa.flash_attention_bwd.launches, ms.mamba_scan.launches)
 
 
 def _card(device) -> str:
@@ -173,14 +216,33 @@ def _sdpa(q, k, v, **kw):
             q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), **kw)
 
 
-def _bound(nbytes: int, flops: int, dtype) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def _exp_per_s(device) -> float:
+    """The card's exp rate: SMs x 16 per clock x its top SM clock
+    (nvidia-smi clocks.max.sm)."""
+    if device.type != "cuda":
+        return NOMINAL_SMS * EXP_PER_CLOCK_SM * NOMINAL_SM_HZ
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * EXP_PER_CLOCK_SM * float(mhz) * 1e6
 
 
-def _err(out, ref, dtype, what: str) -> float:
+def _bound(nbytes: int, flops: int, dtype, exps: int = 0, device=None) -> tuple:
+    """(least ms, what bounds it): bytes over the memory rate, flops over
+    the dtype's peak, and ``exps`` over the card's exp rate."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": flops / PEAK_FLOPS[dtype]}
+    if exps:
+        terms["exp"] = exps / _exp_per_s(device)
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
+
+
+def _err(out, ref, dtype, what: str, tol: float = 0.0) -> float:
     out, ref = out.float(), ref.float()
-    tol = TOL[dtype]
+    tol = tol or TOL[dtype]
     _require(bool(((out - ref).abs() <= tol + tol * ref.abs()).all()),
              f"{what} within {tol} of its plain version")
     return float((out - ref).abs().max())
@@ -370,7 +432,77 @@ def phase_kernels(cfg, device) -> dict:
     return main
 
 
-def phase_serving(cfg, device) -> dict:
+def _scan_case(rng, b, s, di, n, dtype, device, *, h0: bool, timed: bool,
+               dt_rank: int = 0):
+    """One scan call on the kernel and on the plain version.  With
+    ``dt_rank``, Bc and Cc are column slices of one (B, S, dt_rank + 2N)
+    tensor, as the mixer's ``x_proj`` output gives them."""
+    f32 = torch.float32
+    x = _randn(rng, (b, s, di), dtype, device)
+    dt = F.softplus(_randn(rng, (b, s, di), f32, device))
+    A = -torch.exp(0.3 * _randn(rng, (di, n), f32, device))
+    if dt_rank:
+        xdbc = _randn(rng, (b, s, dt_rank + 2 * n), dtype, device)
+        Bc, Cc = xdbc[..., dt_rank:dt_rank + n], xdbc[..., dt_rank + n:]
+    else:
+        Bc, Cc = _randn(rng, (b, s, n), dtype, device), _randn(rng, (b, s, n),
+                                                                dtype, device)
+    D = _randn(rng, (di,), f32, device)
+    args = (x, dt, A, Bc, Cc, D,
+            _randn(rng, (b, di, n), f32, device) if h0 else None)
+    y, h = ms.mamba_scan(*args)
+    py, ph = ms.mamba_scan_plain(*args)
+    what, tol = f"mamba_scan {(b, s, di, n)} {dtype}", SCAN_TOL[dtype]
+    res = {"max_abs_err": max(_err(y, py, dtype, what + " y", tol),
+                              _err(h, ph, dtype, what + " h", tol))}
+    if timed:
+        nbytes = (x.numel() + Bc.numel() + Cc.numel() + y.numel()) \
+            * x.element_size() + (dt.numel() + A.numel() + D.numel()
+                                  + (args[-1].numel() if h0 else 0)
+                                  + h.numel()) * 4
+        # per (b, t, d, n): dt*A, the state's fma, B times dt*x, C*h and its
+        # sum; per (b, t, d): dt*x, D*x and its add
+        res["bound_ms"], res["bound_by"] = _bound(
+            nbytes, b * s * di * (6 * n + 3), f32, exps=b * s * di * n,
+            device=device)
+        res["ms"] = _time_ms(lambda: ms.mamba_scan(*args), device)
+        res["plain_ms"] = _time_ms(lambda: ms.mamba_scan_plain(*args), device)
+        res["library_ms"] = None      # no PyTorch call computes the scan
+    return res
+
+
+def phase_scan(cfg, device) -> dict:
+    """The scan kernel against its plain version (``cfg``: the Mamba
+    model); returns ``{"mamba_scan": ...}`` with the largest error over all
+    cases and the times of the 1024-token prefill, plus the other timed
+    shapes under ``"timed"``."""
+    rng = np.random.default_rng(0)
+    di, n, dtr = cfg.ssm_d_inner, cfg.ssm_state, cfg.resolved_dt_rank
+    bf16 = torch.bfloat16
+    errs = [_scan_case(rng, b, s, d, k, torch.float32, device, h0=True,
+                       timed=False)["max_abs_err"] for b, s, d, k in SCAN_CASES]
+    timed = {f"prefill B=1 S={s}": _scan_case(rng, 1, s, di, n, bf16, device,
+                                              h0=False, timed=True, dt_rank=dtr)
+             for s in SCAN_PREFILL_LENS}
+    timed[f"decode B={SCHED.max_num_seqs} S=1"] = _scan_case(
+        rng, SCHED.max_num_seqs, 1, di, n, bf16, device, h0=True, timed=True,
+        dt_rank=dtr)
+    main = dict(timed[f"prefill B=1 S={max(SCAN_PREFILL_LENS)}"])
+    main["max_abs_err"] = max(errs + [t["max_abs_err"] for t in timed.values()])
+    main["timed"] = timed
+    print(f"[3b kernels] mamba_scan: {len(errs) + len(timed)} cases agree with "
+          f"the plain version (max abs err {main['max_abs_err']:.3g}); Di={di}, "
+          f"N={n}, bf16; library: none (no single PyTorch call computes a "
+          f"selective scan); {_card(device)}")
+    for shape, res in timed.items():
+        print(f"  {shape}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
+              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return {"mamba_scan": main}
+
+
+def _serve(cfg, device) -> dict:
+    """The Engine serves the phase-4 requests through the kernel backend,
+    counts zeroed just before ``run`` and read just after."""
     rng = np.random.default_rng(0)
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)
     requests = [Request(i, 0.0, rng.integers(0, cfg.vocab_size, n).tolist(),
@@ -395,25 +527,37 @@ def phase_serving(cfg, device) -> dict:
     t0 = time.perf_counter()
     engine.run(requests)
     wall = time.perf_counter() - t0
-    launches, flash, flash_bwd = _counts()
-    decode_iters = sum(1 for r in engine.records if r.n_decodes)
+    counts = _counts()
+    _require(all(finite), "every logit of the run is finite")
+    _require(all(r.done and r.generated == NEW_TOKENS for r in requests),
+             "every request finished with its new tokens")
+    return {"engine": engine, "requests": requests, "lens": lens, "wall": wall,
+            "counts": counts,
+            "decode_iters": sum(1 for r in engine.records if r.n_decodes),
+            "ttft": [r.first_token_t - r.arrival for r in requests],
+            "tpot": [(r.finish_t - r.first_token_t) / (r.generated - 1)
+                     for r in requests],
+            "peak": torch.cuda.max_memory_allocated(device) if cuda else 0}
+
+
+def phase_serving(cfg, device) -> dict:
+    cuda = device.type == "cuda"
+    run = _serve(cfg, device)
+    engine, requests, decode_iters = run["engine"], run["requests"], run["decode_iters"]
+    launches, flash, flash_bwd, scan = run["counts"]
     expect = cfg.n_layers * decode_iters if cuda else 0
     _require(launches == expect,
              f"decode-kernel launches {launches} == {expect} (layers x decode iterations)")
     # chunked prefill attends against the cache without the flash kernel,
     # as the reference dispatches it
-    _require(flash == flash_bwd == 0,
-             f"no flash-kernel launch while serving ({flash}, {flash_bwd})")
-    _require(all(finite), "every logit of the run is finite")
-    _require(all(r.done and r.generated == NEW_TOKENS for r in requests),
-             "every request finished with its new tokens")
-    ttft = [r.first_token_t - r.arrival for r in requests]
-    tpot = [(r.finish_t - r.first_token_t) / (r.generated - 1) for r in requests]
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    _require(flash == flash_bwd == scan == 0,
+             f"no flash- or scan-kernel launch while serving ({flash}, "
+             f"{flash_bwd}, {scan})")
+    ttft, tpot, peak = run["ttft"], run["tpot"], run["peak"]
     print(f"[4 serving] {cfg.name}: {len(requests)} requests, prompts "
-          f"{sorted(lens.tolist())}, {len(engine.records)} iterations "
+          f"{sorted(run['lens'].tolist())}, {len(engine.records)} iterations "
           f"({decode_iters} with decodes), makespan {engine.clock:.4f} s "
-          f"(wall {wall:.2f} s), peak memory {peak / 2**30:.2f} GiB, "
+          f"(wall {run['wall']:.2f} s), peak memory {peak / 2**30:.2f} GiB, "
           f"decode-kernel launches {launches}")
     print("  ttft_s " + " ".join(f"{t:.4f}" for t in ttft))
     print("  tpot_s " + " ".join(f"{t:.5f}" for t in tpot))
@@ -430,7 +574,7 @@ def phase_serving(cfg, device) -> dict:
     out = {"decode_launches": launches, "decode_iterations": decode_iters,
            "makespan_s": engine.clock, "ttft_s": ttft, "tpot_s": tpot,
            "peak_bytes": peak}
-    del engine
+    del engine, run
     _release(device)
     return out
 
@@ -446,11 +590,11 @@ def phase_prefill(cfg, device) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    decode, launches, backward = _counts()
+    decode, launches, backward, scan = _counts()
     expect = cfg.n_layers if device.type == "cuda" else 0
-    _require(launches == expect and decode == backward == 0,
-             f"flash-kernel launches {launches} == {expect}, decode {decode} "
-             f"and backward {backward} == 0")
+    _require(launches == expect and decode == backward == scan == 0,
+             f"flash-kernel launches {launches} == {expect}, decode {decode}, "
+             f"backward {backward} and scan {scan} == 0")
     _require(bool(torch.isfinite(lk).all()), "prefill logits are finite")
     lx, _ = model.prefill(tokens, max_seq=MAX_SEQ, impl="xla")
     cos = float(F.cosine_similarity(lk, lx, dim=-1).min())
@@ -487,15 +631,15 @@ def phase_train(cfg, device, *, seq: int = TRAIN_SEQ,
         losses.append(float(metrics["loss"]))        # waits for the step
         gnorms.append(float(metrics["grad_norm"]))
         times.append(time.perf_counter() - t0)
-    decode, fwd, bwd = _counts()
+    decode, fwd, bwd, scan = _counts()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     calls = TRAIN_LAYERS * MICROBATCHES * steps
     # remat: each layer's forward runs again inside its backward
     expect_bwd, expect_fwd = (calls, 2 * calls) if cuda else (0, 0)
-    _require(bwd == expect_bwd and fwd == expect_fwd and decode == 0,
+    _require(bwd == expect_bwd and fwd == expect_fwd and decode == scan == 0,
              f"flash backward calls {bwd} == {expect_bwd} (layers x microbatches "
              f"x steps), forward launches {fwd} == {expect_fwd} (twice that: "
-             f"remat), decode {decode} == 0")
+             f"remat), decode {decode} and scan {scan} == 0")
     _require(all(np.isfinite(losses + gnorms)),
              f"every loss and grad norm is finite ({losses}, {gnorms})")
 
@@ -572,15 +716,207 @@ def phase_measure(cfg, device) -> dict:
     return out
 
 
+def _cosine_rows(a, b) -> torch.Tensor:
+    return F.cosine_similarity(a.float(), b.float(), dim=-1)
+
+
+def phase_mamba_serving(cfg, device) -> dict:
+    """The Engine serves falcon-mamba through the scan kernel: exact-length
+    chunks, one launch per layer for each chunk and each decode
+    iteration."""
+    cuda = device.type == "cuda"
+    run = _serve(cfg, device)
+    engine, requests, decode_iters = run["engine"], run["requests"], run["decode_iters"]
+    decode, flash, flash_bwd, scan = run["counts"]
+    chunks = sum(r.n_chunks for r in engine.records)
+    expect = cfg.n_layers * (chunks + decode_iters) if cuda else 0
+    _require(scan == expect, f"scan launches {scan} == {expect} (layers x "
+             f"({chunks} prefill chunks + {decode_iters} decode iterations))")
+    _require(decode == flash == flash_bwd == 0,
+             f"no attention-kernel launch ({decode}, {flash}, {flash_bwd})")
+    ttft, tpot, peak = run["ttft"], run["tpot"], run["peak"]
+    print(f"[7 mamba serving] {cfg.name}, {cfg.n_layers} layers, "
+          f"{sum(p.numel() for p in engine.model.parameters()) / 1e9:.3f} B "
+          f"parameters, {cfg.dtype}: {len(requests)} requests, prompts "
+          f"{sorted(run['lens'].tolist())}, {len(engine.records)} iterations "
+          f"({chunks} exact-length prefill chunks, {decode_iters} with "
+          f"decodes), makespan {engine.clock:.4f} s (wall {run['wall']:.2f} s), "
+          f"peak memory {peak / 2**30:.2f} GiB, scan launches {scan}; "
+          f"{_card(device)}")
+    print("  ttft_s " + " ".join(f"{t:.4f}" for t in ttft))
+    print("  tpot_s " + " ".join(f"{t:.5f}" for t in tpot))
+
+    # one more decode step on copies of the final state, kernel vs plain
+    lengths = torch.tensor(engine.lengths, dtype=torch.int32, device=device)
+    toks = [1] * SCHED.max_num_seqs
+
+    def state():
+        return [{k: t.clone() for k, t in c.items()} for c in engine.cache]
+    lk, _ = engine.model.decode_step(state(), toks, lengths, impl="kernel")
+    lx, _ = engine.model.decode_step(state(), toks, lengths, impl="xla")
+    cos = _cosine_rows(lk, lx)
+    _require(bool((cos >= 0.99).all()),
+             f"decode logits kernel vs plain cosine >= 0.99 (min {float(cos.min()):.5f})")
+    print(f"  decode step on the final state, kernel vs plain: min cosine "
+          f"{float(cos.min()):.6f}")
+    out = {"scan_launches": scan, "chunks": chunks,
+           "decode_iterations": decode_iters, "makespan_s": engine.clock,
+           "ttft_s": ttft, "tpot_s": tpot, "peak_bytes": peak,
+           "min_cosine": float(cos.min())}
+    del engine, run
+    _release(device)
+    return out
+
+
+def _states_cosine(a, b) -> float:
+    """The least cosine over layers between two caches' SSM states."""
+    return min(float(_cosine_rows(x["h"].flatten(), y["h"].flatten()))
+               for x, y in zip(a, b))
+
+
+def _stepwise_scan(x, dt, A, Bc, Cc, D, h0=None):
+    """The plain scan one step at a time, ``ref.selective_scan_step`` over
+    t: the order in which the kernel sums."""
+    h = h0 if h0 is not None else x.new_zeros(
+        (x.shape[0], x.shape[2], A.shape[1]), dtype=torch.float32)
+    ys = []
+    for t in range(x.shape[1]):
+        y, h = ref.selective_scan_step(x[:, t], dt[:, t], A, Bc[:, t], Cc[:, t],
+                                       D, h)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
+@torch.no_grad()
+def _mamba_layers_vs_plain(model, tokens) -> tuple:
+    """Each layer's mixer through the kernel and through the plain scan on
+    the same input, the kernel path's own activation at that layer: the
+    least cosine over layers and positions of the outputs, and over layers
+    of the final SSM states."""
+    cfg = model.cfg
+    x = model.embed(torch.as_tensor(tokens, device=model.device).long())
+    out_cos = h_cos = 1.0
+    for layer in model.layers:
+        h = layer.ln1(x)
+        yk, (_, hk) = mamba_mod.mamba_mixer(layer.mamba, h, cfg,
+                                            return_state=True, impl="kernel")
+        yx, (_, hx) = mamba_mod.mamba_mixer(layer.mamba, h, cfg,
+                                            return_state=True, impl="xla")
+        out_cos = min(out_cos, float(_cosine_rows(yk[0], yx[0]).min()))
+        h_cos = min(h_cos, float(_cosine_rows(hk.flatten(), hx.flatten())))
+        x = x + yk
+    return out_cos, h_cos
+
+
+def phase_mamba_prefill(cfg, device) -> dict:
+    """Model.prefill on a 1024-token prompt through the scan kernel (one
+    launch per layer), in the model dtype, against the plain scan: layer by
+    layer on the kernel path's activations (cosine >= 0.999), and end to
+    end in float32 (cosine >= 0.99 for the last logits and every layer's
+    state).  End to end in bf16 the two are printed, not held, beside the
+    plain scan against itself taken one step at a time (the kernel's order
+    of the sums): 64 random layers amplify bf16 rounding (1 ulp of some y
+    entries) whichever order makes it."""
+    def model_in(dtype):
+        return Model(cfg, device=device, dtype=dtype,
+                     generator=torch.Generator(device=device).manual_seed(0)
+                     ).requires_grad_(False)
+    model = model_in(None)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, PREFILL_LEN))
+    _zero_counts()
+    t0 = time.perf_counter()
+    lk, ck = model.prefill(tokens, max_seq=MAX_SEQ, impl="kernel")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    *attention, scan = _counts()
+    expect = cfg.n_layers if device.type == "cuda" else 0
+    _require(scan == expect and not any(attention),
+             f"scan launches {scan} == {expect} (one per layer), attention "
+             f"kernels {attention} none")
+    _require(bool(torch.isfinite(lk).all()), "prefill logits are finite")
+    lx, cx = model.prefill(tokens, max_seq=MAX_SEQ, impl="xla")
+    cos, h_cos = float(_cosine_rows(lk, lx).min()), _states_cosine(ck, cx)
+    plain = mamba_mod.selective_scan_chunked
+    mamba_mod.selective_scan_chunked = _stepwise_scan
+    try:
+        lh, ch = model.prefill(tokens, max_seq=MAX_SEQ, impl="xla")
+    finally:
+        mamba_mod.selective_scan_chunked = plain
+    order_cos, order_h_cos = float(_cosine_rows(lh, lx).min()), _states_cosine(ch, cx)
+    layer_cos, layer_h_cos = _mamba_layers_vs_plain(model, tokens)
+    _require(layer_cos >= 0.999 and layer_h_cos >= 0.999,
+             f"every layer's mixer, kernel vs plain scan on the same input: "
+             f"cosine >= 0.999 (outputs {layer_cos:.6f}, states {layer_h_cos:.6f})")
+    del model, ck, cx, ch
+    _release(device)
+
+    model = model_in(torch.float32)
+    lk32, ck32 = model.prefill(tokens, max_seq=MAX_SEQ, impl="kernel")
+    lx32, cx32 = model.prefill(tokens, max_seq=MAX_SEQ, impl="xla")
+    cos32, h_cos32 = float(_cosine_rows(lk32, lx32).min()), _states_cosine(ck32, cx32)
+    _require(cos32 >= 0.99 and h_cos32 >= 0.99,
+             f"float32 prefill kernel vs plain cosine >= 0.99: logits "
+             f"{cos32:.6f}, SSM states (least over layers) {h_cos32:.6f}")
+    print(f"[8 mamba prefill] {PREFILL_LEN} tokens in {wall:.4f} s ({cfg.dtype}, "
+          f"first call, host clock), scan launches {scan}; kernel vs plain "
+          f"scan, cosine: each layer on the same input, outputs "
+          f"{layer_cos:.6f}, states {layer_h_cos:.6f}; end to end in float32, "
+          f"last logits {cos32:.6f}, states {h_cos32:.6f}; end to end in "
+          f"{cfg.dtype}, last logits {cos:.6f}, states {h_cos:.6f} (least over "
+          f"layers), where the plain scan one step at a time against the "
+          f"plain scan gives {order_cos:.6f} and {order_h_cos:.6f}")
+    del model, ck32, cx32
+    _release(device)
+    return {"scan_launches": scan, "cosine": cos, "h_cosine": h_cos,
+            "order_cosine": order_cos, "order_h_cosine": order_h_cos,
+            "layer_cosine": layer_cos, "layer_h_cosine": layer_h_cos,
+            "fp32_cosine": cos32, "fp32_h_cosine": h_cos32}
+
+
+def phase_mamba_measure(cfg, device) -> dict:
+    """The mamba context's points through the oracle, two timings each."""
+    cuda = device.type == "cuda"
+    oracle = cuda_events if cuda else cpu_wallclock
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for phase, points in (("prefill", MAMBA_PREFILL_POINTS),
+                          ("decode", [(1, r) for r in MAMBA_DECODE_REQS])):
+        mc = build_context(cfg, "mamba", phase=phase, backend="kernel",
+                           device=device)
+        mamba = mc.module(mc.materialize(mc.params, gen))
+        for toks, reqs in points:
+            # the state's size does not depend on the context length
+            args = (mamba, *mc.materialize(mc.abstract_inputs(toks, reqs, 0), gen))
+            out[(phase, toks, reqs)] = [oracle(mc.fn, args, device=device)
+                                        if cuda else oracle(mc.fn, args)
+                                        for _ in range(2)]
+        del mamba
+    low, high = out[("prefill", 256, 1)], out[("prefill", 1024, 1)]
+    if cuda:
+        _require(min(high) > max(low), f"prefill point (1024, 1) {high} above "
+                 f"(256, 1) {low}")
+    print(f"[9 mamba measure] mamba, {oracle.__name__}, two measurements each: "
+          + "; ".join(f"{ph} toks={t} reqs={r}: "
+                      + ", ".join(f"{x * 1e6:.1f}" for x in xs) + " us"
+                      for (ph, t, r), xs in out.items())
+          + f"; {_card(device)}")
+    _release(device)
+    return out
+
+
 def kernels_line(kernels: dict, serving: dict, prefill: dict,
-                 train: dict) -> dict:
+                 train: dict, mamba_serving: dict, mamba_prefill: dict) -> dict:
     """Launches are counted on the main paths: decode while serving, the
     flash forward over the prefill and the train steps, the backward over
-    the train steps."""
+    the train steps, the scan while serving falcon-mamba and over its
+    prefill."""
     launches = {"decode_attention": serving["decode_launches"],
                 "flash_attention_fwd": prefill["flash_launches"]
                 + train["flash_fwd_launches"],
-                "flash_attention_bwd": train["flash_bwd_launches"]}
+                "flash_attention_bwd": train["flash_bwd_launches"],
+                "mamba_scan": mamba_serving["scan_launches"]
+                + mamba_prefill["scan_launches"]}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -602,18 +938,22 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    cfg = get_config("llama3-8b")
+    cfg, mcfg = get_config("llama3-8b"), get_config(MAMBA)
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     info = phase_device(cfg, device)
     phase_build(cfg, device)
     kernels = phase_kernels(cfg, device)
+    kernels.update(phase_scan(mcfg, device))
     serving = phase_serving(cfg, device)
     prefill = phase_prefill(cfg, device)
     train = phase_train(cfg, device)
     phase_measure(cfg, device)
-    print(f"[7] all phases passed in {time.perf_counter() - t0:.1f} s")
-    kernels_line(kernels, serving, prefill, train)
+    mamba_serving = phase_mamba_serving(mcfg, device)
+    mamba_prefill = phase_mamba_prefill(mcfg, device)
+    phase_mamba_measure(mcfg, device)
+    print(f"[10] all phases passed in {time.perf_counter() - t0:.1f} s")
+    kernels_line(kernels, serving, prefill, train, mamba_serving, mamba_prefill)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -16,6 +16,7 @@ __all__ = ["SHAPES", "MLAConfig", "ModelConfig", "ShapeSpec",
 
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("decode_attention", "flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("decode_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "mamba_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-"""Model-layout wrappers around the attention kernels.
+"""Model-layout wrappers around the kernels.
 
 Counterpart of ``repro.kernels.ops``.  The model's layout is (B, S, H, D)
 and the kernels take it as it is, so these wrappers only reshape.  Each
@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 
 
 # ---------------------------------------------------------------------------
@@ -58,3 +59,13 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     qh = q.reshape(b, kv, h // kv, d)
     out = da.decode_attention(qh, k_cache, v_cache, lengths, window=window)
     return out.reshape(b, 1, h, -1)
+
+
+# ---------------------------------------------------------------------------
+# mamba selective scan (inference only: the kernel has no backward)
+# ---------------------------------------------------------------------------
+
+def selective_scan(x, dt, A, Bc, Cc, D, h0=None):
+    """x, dt (B,S,Di)  A (Di,N)  Bc, Cc (B,S,N)  D (Di,)  h0 (B,Di,N)
+    -> (y (B,S,Di), h_S (B,Di,N) float32)."""
+    return ms.mamba_scan(x, dt, A, Bc, Cc, D, h0)

@@ -1,11 +1,12 @@
-"""Plain PyTorch reference attention: the port's counterpart of
+"""Plain PyTorch references: the port's counterpart of
 ``repro.kernels.ref``.
 
 Same functions, same layouts (q (B,S,H,D), caches (B,Smax,KV,D)) and the
 same masking rules; every computation runs in float32 and casts back to
-q's dtype.  These are the materialized ``xla`` and ``chunked_naive``
-backends of ``models.attention`` and the ground truth the kernels are held
-against.  ``selective_scan*`` waits for the Mamba slice.
+the input's dtype.  These are the materialized ``xla`` and
+``chunked_naive`` backends of ``models.attention``, the plain selective
+scan of ``models.mamba``, and the ground truth the kernels are held
+against.
 """
 from __future__ import annotations
 
@@ -202,3 +203,42 @@ def chunk_cache_attention_impl(impl: str):
     if impl == "chunked_naive":
         return chunk_cache_attention_chunked
     return chunk_cache_attention
+
+
+# ---------------------------------------------------------------------------
+# mamba selective scan:
+#   h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * x_t ;  y_t = C_t . h_t + D*x_t
+# x,dt: (B,S,Di)  A: (Di,N)  Bc,Cc: (B,S,N)  D: (Di,)
+# ---------------------------------------------------------------------------
+
+def selective_scan(x, dt, A, Bc, Cc, D, h0=None):
+    """Returns (y (B,S,Di) in x's dtype, h_S (B,Di,N) float32).
+
+    The reference runs ``jax.lax.associative_scan`` over the pairs
+    (exp(dt*A), dt*B*x); this is the same scan by log-step doubling over S
+    (log2(S) elementwise passes over (B,S,Di,N)), with h0 folded into the
+    first step as the reference folds it."""
+    s = x.shape[1]
+    xf, dtf = x.float(), dt.float()
+    dA = torch.exp(dtf[..., None] * A.float()[None, None])          # (B,S,Di,N)
+    dBx = dtf[..., None] * Bc.float()[:, :, None, :] * xf[..., None]
+    if h0 is not None:
+        dBx[:, 0] += dA[:, 0] * h0.float()
+    k = 1
+    while k < s:
+        # element t absorbs element t-k: (a, b) <- (a_{t-k} a_t, b_t + a_t b_{t-k})
+        dBx = torch.cat([dBx[:, :k], dBx[:, k:] + dA[:, k:] * dBx[:, :-k]], 1)
+        if 2 * k < s:
+            dA = torch.cat([dA[:, :k], dA[:, k:] * dA[:, :-k]], 1)
+        k *= 2
+    y = torch.einsum("bsdn,bsn->bsd", dBx, Cc.float()) + xf * D.float()
+    return y.to(x.dtype), dBx[:, -1]
+
+
+def selective_scan_step(x, dt, A, Bc, Cc, D, h):
+    """Single decode step.  x,dt: (B,Di)  Bc,Cc: (B,N)  h: (B,Di,N)."""
+    xf, dtf = x.float(), dt.float()
+    dA = torch.exp(dtf[..., None] * A.float()[None])
+    h_new = dA * h + dtf[..., None] * Bc.float()[:, None, :] * xf[..., None]
+    y = torch.einsum("bdn,bn->bd", h_new, Cc.float()) + xf * D.float()
+    return y.to(x.dtype), h_new

@@ -1,11 +1,11 @@
 """Decoder blocks: full-sequence apply (train / prefill), chunked prefill
 against a cache, and one-token decode.
 
-Counterpart of ``repro.models.transformer`` for the dense block kind.  The
-reference scans over a repeating period of layers; PyTorch runs eagerly, so
-the port keeps one ``Block`` per layer (``layers.{i}``) and loops over them.
-Block kinds other than dense (MoE, Mamba, hybrid) and enc-dec come with
-their families' slices.
+Counterpart of ``repro.models.transformer`` for the dense and Mamba block
+kinds.  The reference scans over a repeating period of layers; PyTorch runs
+eagerly, so the port keeps one ``Block`` per layer (``layers.{i}``) and
+loops over them.  Block kinds other than these (MoE, hybrid) and enc-dec
+come with their families' slices.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.layers import MLP, RMSNorm, apply_rope
 
 Cache = Dict[str, torch.Tensor]
@@ -42,19 +43,24 @@ def layer_descs(cfg: ModelConfig) -> List[BlockDesc]:
 
 
 class Block(nn.Module):
-    """One dense decoder layer: ``ln1``, ``self_attn``, ``ln2``, ``mlp``."""
+    """One decoder layer.  Dense: ``ln1``, ``self_attn``, ``ln2``, ``mlp``;
+    Mamba: ``ln1`` and ``mamba`` only, as the reference's ``block_spec``."""
 
     def __init__(self, cfg: ModelConfig, desc: BlockDesc, *, device=None,
                  dtype=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if desc.kind != "dense" or desc.cross or cfg.attn_type != "gqa":
+        dense = desc.kind == "dense" and cfg.attn_type == "gqa"
+        if desc.cross or not (dense or desc.kind == "mamba"):
             raise NotImplementedError(
                 f"{cfg.name}: block kind {desc.kind!r} (cross={desc.cross}, "
                 f"attn={cfg.attn_type!r}) is not ported; the port runs dense "
-                "GQA decoders")
+                "GQA decoders and Mamba blocks")
         self.cfg, self.desc = cfg, desc
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        if desc.kind == "mamba":
+            self.mamba = mamba_mod.Mamba(cfg, **kw)
+            return
         self.self_attn = attn_mod.Attention(cfg, **kw)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
@@ -71,9 +77,17 @@ class Block(nn.Module):
 def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
                 impl: str, causal: bool = True, collect_cache: bool = False,
                 max_seq: int = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x_out, cache_entry_or_None)."""
+    """Returns (x_out, cache_entry_or_None): ``{"k", "v"}`` for attention,
+    ``{"conv", "h"}`` for Mamba."""
     desc = block.desc
     h = block.ln1(x)
+    if desc.kind == "mamba":
+        if not collect_cache:
+            return x + mamba_mod.mamba_mixer(block.mamba, h, block.cfg,
+                                             impl=impl), None
+        y, (tail, hs) = mamba_mod.mamba_mixer(block.mamba, h, block.cfg,
+                                              return_state=True, impl=impl)
+        return x + y, {"conv": tail, "h": hs}
     y = block.self_attn(h, positions, causal=causal, window=desc.window,
                         impl=impl)
     cache = None
@@ -158,7 +172,15 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
                         lengths: torch.Tensor, impl: str) -> torch.Tensor:
     """x: (B,C,D) chunk; lengths (B,): tokens already cached per row.
     Engine caches are absolute-position (use_ring=False); ``cache`` is
-    updated in place."""
+    updated in place.  A Mamba block continues from the cache's conv tail
+    and SSM state and writes the chunk's into it."""
+    if block.desc.kind == "mamba":
+        y, (tail, hs) = mamba_mod.mamba_mixer(
+            block.mamba, block.ln1(x), block.cfg, h0=cache["h"],
+            conv_tail=cache["conv"], return_state=True, impl=impl)
+        cache["conv"].copy_(tail)
+        cache["h"].copy_(hs)
+        return x + y
     y = prefill_chunk_attention(
         block.self_attn, block.ln1(x), cache, lengths=lengths,
         window=block.desc.window, impl=impl)
@@ -173,7 +195,15 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
 def block_decode(block: Block, x: torch.Tensor, cache: Cache, *,
                  lengths: torch.Tensor, impl: str,
                  kv_seq_shards: int = 1) -> torch.Tensor:
+    """x: (B,1,D); ``cache`` is updated in place.  Like the reference, a
+    Mamba block advances the state of every row, idle ones included."""
     h = block.ln1(x)
+    if block.desc.kind == "mamba":
+        y, state = mamba_mod.mamba_step(block.mamba, h, cache, block.cfg,
+                                        impl=impl)
+        cache["conv"].copy_(state["conv"])
+        cache["h"].copy_(state["h"])
+        return x + y
     y = attn_mod.decode_attention(block.self_attn, h, cache, lengths=lengths,
                                   window=block.desc.window, impl=impl,
                                   kv_seq_shards=kv_seq_shards)

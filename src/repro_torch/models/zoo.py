@@ -1,13 +1,16 @@
 """Public model API: ``Model(cfg)`` — forward, training loss, full-sequence
 prefill, chunked prefill, one-token decode and zeroed caches.
 
-Counterpart of ``repro.models.zoo`` for dense decoders.  Submodule names
-follow the reference trace's scopes (``layers.{i}.self_attn.q_proj``, ...)
-so a module-hook tracer finds the stateful ``self_attn`` modules.
+Counterpart of ``repro.models.zoo`` for dense and Mamba decoders.
+Submodule names follow the reference trace's scopes
+(``layers.{i}.self_attn.q_proj``, ``layers.{i}.mamba.in_proj``, ...) so a
+module-hook tracer finds the stateful ``self_attn`` and ``mamba`` modules.
 
-A cache is a list with one ``{"k", "v"}`` dict per layer, each tensor
-(B, slots, KV, hd).  ``prefill_chunk`` and ``decode_step`` write into the
-cache they are given, in place, and return it.
+A cache is a list with one dict per layer: ``{"k", "v"}`` for attention,
+each tensor (B, slots, KV, hd); ``{"conv", "h"}`` for Mamba, the conv tail
+(B, kw-1, Di) and the float32 SSM state (B, Di, N).  ``prefill_chunk`` and
+``decode_step`` write into the cache they are given, in place, and return
+it.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Embedding, Linear, RMSNorm
 
@@ -124,7 +128,9 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, *, max_seq: int, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Full-sequence pass that fills the decode cache.
+        """Full-sequence pass that fills the decode cache: K/V for
+        attention layers, the conv tail and final SSM state for Mamba
+        layers.
 
         Returns (logits at the last position (B, vocab), cache)."""
         x = self.embed(self._tokens(tokens))
@@ -162,10 +168,13 @@ class Model(nn.Module):
     def zero_cache(self, batch: int, max_seq: int,
                    use_ring: bool = True) -> Cache:
         """use_ring=False (serving engine): absolute-position caches even
-        for sliding-window layers, so chunked prefill can address slots."""
-        return [attn_mod.init_kv_cache(
-            self.cfg, batch, max_seq, d.window if use_ring else 0,
-            device=self.device, dtype=self.dtype) for d in self.descs]
+        for sliding-window layers, so chunked prefill can address slots.
+        A Mamba layer's state does not depend on ``max_seq``."""
+        kw = dict(device=self.device, dtype=self.dtype)
+        return [mamba_mod.init_mamba_state(self.cfg, batch, **kw)
+                if d.kind == "mamba" else attn_mod.init_kv_cache(
+                    self.cfg, batch, max_seq, d.window if use_ring else 0, **kw)
+                for d in self.descs]
 
     # ------------------------------------------------------------------
     # chunked prefill (serving engine path; caches are absolute-position)
@@ -210,10 +219,18 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig
     if not cfg.tie_embeddings:
         out["lm_head.w"] = t(tree["lm_head"]["w"])
     names = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj"}
+    kinds = cfg.layer_kinds()
     for i in range(cfg.n_layers):
         blk, j = blocks[i % p], i // p
         pre = f"layers.{i}."
         out[pre + "ln1.scale"] = t(blk["ln1"]["scale"][j])
+        if kinds[i] == "mamba":
+            m = blk["mamba"]
+            for a in ("in_proj", "x_proj", "out_proj"):
+                out[pre + f"mamba.{a}.w"] = t(m[a]["w"][j])
+            for a in ("conv_w", "conv_b", "dt_w", "dt_b", "A_log", "D"):
+                out[pre + f"mamba.{a}"] = t(m[a][j])
+            continue
         out[pre + "ln2.scale"] = t(blk["ln2"]["scale"][j])
         for a, name in names.items():
             out[pre + f"self_attn.{name}.w"] = t(blk["attn"][a]["w"][j])

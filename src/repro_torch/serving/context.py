@@ -1,19 +1,19 @@
 """Execution context emulation (paper §5.2 / I2) for the stateful
-``self_attn`` module.
+``self_attn`` and ``mamba`` modules.
 
-Counterpart of ``repro.serving.context``.  Decode-phase attention cannot be
-profiled from a trace alone: it needs KV-cache memory and per-request
-lengths.  The builders here reuse the serving engine's own code — the
-``Attention`` module and the same cache-write and attention functions the
-engine runs — parameterized by phase and backend, so the profiled
-computation is exactly the served computation.
+Counterpart of ``repro.serving.context``.  Decode-phase attention and Mamba
+cannot be profiled from a trace alone: they need KV-cache memory and
+per-request lengths, or the conv tail and SSM state.  The builders here
+reuse the serving engine's own code — the ``Attention`` and ``Mamba``
+modules and the same functions the engine runs — parameterized by phase and
+backend, so the profiled computation is exactly the served computation.
 
-``build_context(cfg, "self_attn", ...)`` returns a ``ModuleContext``:
-``params`` and ``input_spec(toks, reqs, ctx)`` are ``TensorSpec`` stand-ins,
+``build_context(cfg, kind, ...)`` returns a ``ModuleContext``: ``params``
+and ``input_spec(toks, reqs, ctx)`` are ``TensorSpec`` stand-ins,
 ``materialize`` turns them into tensors on the context's device from a
 seeded ``torch.Generator``, ``module(weights)`` binds weights into the
-engine's ``Attention`` module, and ``fn(module, *inputs)`` runs one call.
-The other module kinds (MLA, Mamba, MoE, cross-attention) come with their
+engine's module of that kind, and ``fn(module, *inputs)`` runs one call.
+The other module kinds (MLA, MoE, cross-attention) come with their
 families' slices.
 """
 from __future__ import annotations
@@ -22,10 +22,12 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.transformer import prefill_chunk_attention
 
 
@@ -71,12 +73,14 @@ class ModuleContext:
             return type(x)(gen(v) for v in x)
         return gen(tree)
 
-    def module(self, weights: Mapping[str, torch.Tensor]) -> attn_mod.Attention:
-        """The engine's ``Attention`` module holding ``weights``."""
-        attn = attn_mod.Attention(self.cfg, device=self.device,
-                                  dtype=getattr(torch, self.cfg.dtype))
-        attn.load_state_dict(weights)
-        return attn.requires_grad_(False)
+    def module(self, weights: Mapping[str, torch.Tensor]) -> nn.Module:
+        """The engine's module of this kind (``Attention`` or ``Mamba``)
+        holding ``weights``."""
+        cls = mamba_mod.Mamba if self.kind == "mamba" else attn_mod.Attention
+        mod = cls(self.cfg, device=self.device,
+                  dtype=getattr(torch, self.cfg.dtype))
+        mod.load_state_dict(weights)
+        return mod.requires_grad_(False)
 
 
 def build_context(cfg: ModelConfig, kind: str, *, phase: str = "prefill",
@@ -88,6 +92,8 @@ def build_context(cfg: ModelConfig, kind: str, *, phase: str = "prefill",
     # only *latency-relevant* attributes enter the signature digest, so
     # layers of equal geometry in different models dedup (paper Table 2)
     attrs = {"kind": kind, "window": window, "d_model": d}
+    if kind == "mamba":
+        return _mamba_context(cfg, phase, backend, attrs, dev)
     if kind != "self_attn" or cfg.attn_type != "gqa":
         raise KeyError(f"no execution-context builder for module kind {kind!r} "
                        f"(attn_type {cfg.attn_type!r}) in the port yet")
@@ -130,3 +136,49 @@ def build_context(cfg: ModelConfig, kind: str, *, phase: str = "prefill",
     return ModuleContext(kind, phase, backend, fn, params, inputs, attrs,
                          cfg, dev)
 
+
+def _mamba_context(cfg: ModelConfig, phase: str, backend: str,
+                   attrs: Dict[str, Any], dev: torch.device) -> ModuleContext:
+    """Prefill: the mixer over a fresh sequence (no state in, as the
+    reference builds it); decode: one ``mamba_step`` from a given conv tail
+    and SSM state."""
+    d, di, st, kw = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
+    dtr = cfg.resolved_dt_rank
+    dt, f32 = getattr(torch, cfg.dtype), torch.float32
+    attrs.update({"d_inner": di, "state": st, "conv": kw, "dt_rank": dtr})
+    params = {"in_proj.w": TensorSpec((d, 2 * di), dt),
+              "conv_w": TensorSpec((kw, di), dt),
+              "conv_b": TensorSpec((di,), dt),
+              "x_proj.w": TensorSpec((di, dtr + 2 * st), dt),
+              "dt_w": TensorSpec((dtr, di), dt),
+              "dt_b": TensorSpec((di,), f32),
+              "A_log": TensorSpec((di, st), f32),
+              "D": TensorSpec((di,), f32),
+              "out_proj.w": TensorSpec((di, d), dt)}
+    if phase == "prefill":
+        @torch.no_grad()
+        def fn(m, x):
+            return mamba_mod.mamba_mixer(m, x, cfg, impl=backend)
+
+        def inputs(toks, reqs, ctx):
+            return (TensorSpec((reqs, toks, d), dt),)
+    else:
+        @torch.no_grad()
+        def fn(m, x, conv, h):
+            out, _ = mamba_mod.mamba_step(m, x, {"conv": conv, "h": h}, cfg,
+                                          impl=backend)
+            return out
+
+        def inputs(toks, reqs, ctx):
+            return (TensorSpec((reqs, 1, d), dt),
+                    TensorSpec((reqs, kw - 1, di), dt),
+                    TensorSpec((reqs, di, st), f32))
+    return ModuleContext("mamba", phase, backend, fn, params, inputs, attrs,
+                         cfg, dev)
+
+
+def phases_for(kind: str, cfg: ModelConfig) -> Tuple[str, ...]:
+    """Which phases a stateful module must be profiled in (App. D)."""
+    if kind == "moe":
+        return ("prefill",)          # decode == prefill with toks=1
+    return ("prefill", "decode")

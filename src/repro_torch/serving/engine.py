@@ -4,7 +4,8 @@ Counterpart of ``repro.serving.engine``, with the same static-shape
 discipline: one padded cache of ``max_num_seqs`` rows is allocated up front
 (absolute-position slots, no ring); decode runs the full row batch every
 iteration (inactive rows masked by lengths), prefill chunks run per row
-through ``Model.prefill_chunk``, padded to power-of-two buckets.  A chunk
+through ``Model.prefill_chunk``, padded to power-of-two buckets, except for
+configs with SSM state, whose chunks run at their exact length.  A chunk
 runs on a view of its row of the cache and writes into it in place.
 
 The engine clock advances by *measured model time* per iteration: host
@@ -83,7 +84,8 @@ class Engine:
 
     def warmup(self):
         """Run the decode step and every chunk bucket once, so that kernel
-        builds, library set-up and allocator growth land outside timed
+        builds (the scan kernel's too, through the decode step of an SSM
+        config), library set-up and allocator growth land outside timed
         iterations; the cache is zeroed afterwards."""
         r = self.sched.config.max_num_seqs
         self.model.decode_step(self.cache, [0] * r, self._ints(self.lengths),
@@ -111,7 +113,10 @@ class Engine:
         new_tokens: Dict[int, int] = {}
         for chunk in plan.prefills:
             r = chunk.req
-            b = bucket_chunk(chunk.length, self.sched.config.chunk_size)
+            # SSM state is sequential: pad tokens would advance it, so
+            # configs with SSM state run exact-length chunks (no bucketing)
+            b = chunk.length if self.cfg.ssm_state > 0 else \
+                bucket_chunk(chunk.length, self.sched.config.chunk_size)
             ids = r.prompt[chunk.start:chunk.start + chunk.length]
             ids = ids + [0] * (b - chunk.length)        # pad to the bucket
             logits, _ = self.model.prefill_chunk(

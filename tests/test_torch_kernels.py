@@ -23,6 +23,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 
 torch.set_num_threads(2)
 
@@ -236,15 +237,20 @@ def test_decode_length_zero_gives_zeros_like_the_pallas_kernel():
 
 def test_cpu_wrappers_launch_no_kernel():
     da.decode_attention.launches = fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.launches = ms.mamba_scan.launches = 0
     (_, q), (_, k), (_, v) = _qkv((1, 32, 32, 4, 2, 32))
     q.requires_grad_(True)
     ops.flash_attention(q, k, v).sum().backward()
     ops.decode_attention(q[:, :1].detach(), k, v,
                          torch.tensor([5], dtype=torch.int32))
+    x, dt = torch.randn(1, 6, 16), torch.rand(1, 6, 16)
+    y, h = ops.selective_scan(x, dt, -torch.rand(16, 4), torch.randn(1, 6, 4),
+                              torch.randn(1, 6, 4), torch.randn(16))
+    assert y.shape == x.shape and h.shape == (1, 16, 4)
     assert da.decode_attention.launches == 0
     assert fa.flash_attention_fwd.launches == 0
     assert fa.flash_attention_bwd.launches == 0
+    assert ms.mamba_scan.launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -317,13 +323,21 @@ def _fake_nvcc(tmp_path, body):
 
 
 def test_build_compiles_each_source_once(tmp_path, monkeypatch):
-    nvcc = _fake_nvcc(tmp_path, 'while [ "$1" != "-o" ]; do shift; done\n'
+    calls = tmp_path / "calls"
+    nvcc = _fake_nvcc(tmp_path, f'echo "$@" >> {calls}\n'
+                      'while [ "$1" != "-o" ]; do shift; done\n'
                       'echo "ptxas info    : Used 32 registers"; : > "$2"\n')
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     assert _build.find_nvcc() == str(nvcc)
     reports = _build.build()
     assert sorted(reports) == sorted(_build.SOURCES)
+    assert "mamba_scan" in _build.SOURCES and len(_build.SOURCES) == 4
+    # one nvcc process per source, each compiling its own file for sm_90a
+    lines = calls.read_text().splitlines()
+    assert sorted(line.split()[-1].rsplit("/", 1)[-1] for line in lines) == \
+        sorted(f"{n}.cu" for n in _build.SOURCES)
+    assert all("arch=compute_90a,code=sm_90a" in line for line in lines)
     assert all("Used 32 registers" in r for r in reports.values())
     libs = {n: _build.library_path(n) for n in _build.SOURCES}
     assert all(p.exists() for p in libs.values())

@@ -67,10 +67,11 @@ def _tokens(seed, shape, vocab):
 # configs and parameters
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "falcon-mamba-7b"])
 @pytest.mark.parametrize("smoke", [False, True])
-def test_config_copy_matches_reference(smoke):
-    port = get_smoke_config("llama3-8b") if smoke else get_config("llama3-8b")
-    ref = jax_smoke_config("llama3-8b") if smoke else jax_config("llama3-8b")
+def test_config_copy_matches_reference(smoke, arch):
+    port = get_smoke_config(arch) if smoke else get_config(arch)
+    ref = jax_smoke_config(arch) if smoke else jax_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.layer_kinds() == ref.layer_kinds()
     assert port.param_count() == ref.param_count()

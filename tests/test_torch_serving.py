@@ -231,14 +231,21 @@ def _chip_smoke():
 def test_chip_smoke_phases_on_cpu(capsys):
     cs = _chip_smoke()
     cfg, cpu = get_smoke_config("llama3-8b"), torch.device("cpu")
+    mcfg = get_smoke_config(cs.MAMBA)
     kernels = cs.phase_kernels(cfg, cpu)
+    kernels.update(cs.phase_scan(mcfg, cpu))
     serving = cs.phase_serving(cfg, cpu)
     prefill = cs.phase_prefill(cfg, cpu)
     train = cs.phase_train(cfg, cpu, seq=32)
     measured = cs.phase_measure(cfg, cpu)
-    line = cs.kernels_line(kernels, serving, prefill, train)
+    mamba_serving = cs.phase_mamba_serving(mcfg, cpu)
+    mamba_prefill = cs.phase_mamba_prefill(mcfg, cpu)
+    mamba_measured = cs.phase_mamba_measure(mcfg, cpu)
+    line = cs.kernels_line(kernels, serving, prefill, train, mamba_serving,
+                           mamba_prefill)
     assert [k["name"] for k in line["kernels"]] == [
-        "decode_attention", "flash_attention_fwd", "flash_attention_bwd"]
+        "decode_attention", "flash_attention_fwd", "flash_attention_bwd",
+        "mamba_scan"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in line["kernels"]:
@@ -252,8 +259,19 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert set(measured) == {("decode", 1, r, c) for r, c in cs.MEASURE_POINTS} \
         | {("prefill",) + cs.PREFILL_POINT}
     assert all(len(v) == 2 and min(v) > 0 for v in measured.values())
+    scan = line["kernels"][-1]
+    assert scan["library_ms"] is None and scan["bound_by"] in (
+        "bytes", "operations", "exp")
+    assert mamba_serving["chunks"] > 0 and mamba_serving["min_cosine"] > 0.999
+    assert min(mamba_prefill[k] for k in (
+        "cosine", "h_cosine", "layer_cosine", "layer_h_cosine", "fp32_cosine",
+        "fp32_h_cosine")) > 0.999
+    assert set(mamba_measured) == {("prefill", t, r) for t, r in cs.MAMBA_PREFILL_POINTS} \
+        | {("decode", 1, r) for r in cs.MAMBA_DECODE_REQS}
+    assert all(len(v) == 2 and min(v) > 0 for v in mamba_measured.values())
     out = capsys.readouterr().out
     assert "[4 serving]" in out and "[5b train]" in out and "8 of 3 layers" in out
+    assert "[3b kernels] mamba_scan" in out and "[8 mamba prefill]" in out
 
 
 def test_chip_smoke_train_counts_remat_launches(monkeypatch):
