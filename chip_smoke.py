@@ -12,7 +12,10 @@ phase:
 1. device  — the card's name and count, its name and power limit from
              nvidia-smi; TF32 off for matmuls and convolutions.
 2. build   — the four CUDA kernels compiled from src/repro_torch/csrc, one
-             nvcc each, all at once, with nvcc's -Xptxas -v report.
+             nvcc each, all at once, with nvcc's -Xptxas -v report; the
+             flash libraries' SASS (cuobjdump) must hold tensor-core
+             instructions (HGMMA in the forward, HGMMA or HMMA in the
+             backward) and their bf16 kernels must spill nothing.
 3. kernels — each kernel against its plain PyTorch version on the card: the
              kernel-test cases in fp32 (tolerance 2e-5; the backward 1e-5
              of the largest gradient) and the main paths' shapes in bf16
@@ -20,7 +23,8 @@ phase:
              each call, beside the least time the card could take (bytes at
              3.35 TB/s, flops at 989 TFLOP/s bf16) and one PyTorch call
              computing the same function as a yardstick
-             (scaled_dot_product_attention, or its autograd backward).
+             (scaled_dot_product_attention, or its autograd backward); for
+             the flash kernels also their device time by torch.profiler.
 3b. scan   — the selective-scan kernel against its plain version: the
              kernel-test cases in fp32 with h0 (5e-5) and falcon-mamba's
              shapes in bf16 (2e-2; prefill B=1 at S=256 and 1024, decode
@@ -80,6 +84,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -142,6 +147,11 @@ TRAIN_STEPS, MICROBATCHES, LEARNING_RATE = 6, 2, 3e-4
 MAMBA = "falcon-mamba-7b"
 MAMBA_PREFILL_POINTS = [(256, 1), (1024, 1)]                   # (toks, reqs)
 MAMBA_DECODE_REQS = (1, 8)
+
+#: the libraries whose bf16 path runs on the tensor cores, and the SASS
+#: instructions of which one must appear: wgmma (HGMMA), or mma.sync (HMMA)
+TENSOR_CORE_LIBS = {"flash_attention_fwd": ("HGMMA",),
+                    "flash_attention_bwd": ("HGMMA", "HMMA")}
 
 SOURCES = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:78"),
@@ -206,6 +216,25 @@ def _time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def _device_ms(fn, device, reps: int = 10):
+    """Mean device time of one call's flash kernels by torch.profiler, calls
+    back to back with the L2 cache warm: the card's own time, without the
+    host's launch path and the cold cache that ``_time_ms`` includes.  None
+    off the card."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+             if "flash_" in e.key)
+    return us / reps / 1e3
+
+
 def _sdpa(q, k, v, **kw):
     """scaled_dot_product_attention with grouped KV heads, the yardstick."""
     try:
@@ -263,6 +292,51 @@ def phase_device(cfg, device) -> dict:
     return {"kind": kind, "count": count, "smi": smi}
 
 
+def ptxas_spills(report: str) -> dict:
+    """{kernel: (spill store bytes, spill load bytes)} from an ``-Xptxas -v``
+    report."""
+    spills, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+    return spills
+
+
+def sass_counts(sass: str) -> dict:
+    """Tensor-core instructions in a ``cuobjdump --dump-sass`` listing:
+    ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
+
+
+def check_tensor_cores(reports: dict, sass: dict) -> dict:
+    """Raises unless each library of TENSOR_CORE_LIBS holds the tensor-core
+    instructions it must, and unless its bf16 kernels (the ``wgmma`` kernels
+    and every bf16 instantiation) spill nothing.  ``sass`` maps a library
+    to its SASS listing; returns each one's instruction counts."""
+    counts = {}
+    for name, ops in TENSOR_CORE_LIBS.items():
+        counts[name] = sass_counts(sass[name])
+        _require(any(counts[name][op] for op in ops),
+                 f"{name}: SASS holds {' or '.join(ops)} ({counts[name]})")
+        bf16 = {fn: sp for fn, sp in ptxas_spills(reports[name]).items()
+                if "wgmma" in fn or "bfloat16" in fn}
+        _require(bool(bf16) and not any(a or b for a, b in bf16.values()),
+                 f"{name}: bf16 kernels spill nothing ({bf16})")
+    return counts
+
+
+def _sass(name: str) -> str:
+    """``cuobjdump --dump-sass`` of a built library (cuobjdump beside nvcc)."""
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "--dump-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def phase_build(cfg, device) -> dict:
     t0 = time.perf_counter()
     reports = _build.build()
@@ -271,6 +345,10 @@ def phase_build(cfg, device) -> dict:
         for line in report.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    counts = check_tensor_cores(reports, {n: _sass(n) for n in TENSOR_CORE_LIBS})
+    for name, c in counts.items():
+        print(f"[2 build] {name}: SASS {c['HGMMA']} HGMMA, {c['HMMA']} HMMA; "
+              "bf16 kernels spill 0 bytes")
     return reports
 
 
@@ -323,6 +401,8 @@ def _flash_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
         res["bound_ms"], res["bound_by"] = _bound(nbytes, 4 * b * h * pairs * d,
                                                   dtype)
         res["ms"] = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), device)
+        res["device_ms"] = _device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                                      device)
         res["plain_ms"] = _time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
                                    device)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
@@ -370,6 +450,8 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
         res["bound_ms"], res["bound_by"] = _bound(nbytes, 10 * b * h * pairs * d,
                                                   dtype)
         res["ms"] = _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw), device)
+        res["device_ms"] = _device_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, do, **kw), device)
         res["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, lse, do, **kw), device)
@@ -424,9 +506,11 @@ def phase_kernels(cfg, device) -> dict:
                 res[key] = max([res[key]] + [e[key] for e in errs[name]])
         scaled = (f", max scaled err {res['max_scaled_err']:.3g}"
                   if "max_scaled_err" in res else "")
+        dev = (f" (device {res['device_ms']:.4f} ms by the profiler, warm L2)"
+               if res.get("device_ms") is not None else "")
         print(f"[3 kernels] {name}: {len(errs[name]) + 1} cases agree with the "
               f"plain version (max abs err {res['max_abs_err']:.3g}{scaled}); "
-              f"main path {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+              f"main path {res['ms']:.4f} ms{dev}, plain {res['plain_ms']:.4f} ms, "
               f"library {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
               f"ms ({res['bound_by']}); {card}")
     return main

@@ -12,6 +12,9 @@ namespace repro_torch {
 // exp(NEG_INF - NEG_INF) = 1 masked to 0 instead of NaN.
 constexpr float kNegInf = -1e30f;
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

@@ -6,12 +6,16 @@ Counterpart of ``repro.kernels.flash_attention.flash_attention_fwd`` and
 ``flash_attention_bwd``.  The reference kernels take head-major (B,H,S,D)
 tensors, which its wrapper makes by transposing; here every tensor stays in
 the model's (B,S,H|KV,D) layout and the kernels read them through their
-strides.  The backward returns dK/dV per KV head, summed over each GQA group
-inside the kernel, where the reference returns them per query head and sums
-the groups in its wrapper.
+strides (TMA tensor maps on the bf16 path).  The backward returns dK/dV per
+KV head, summed over each GQA group inside the kernel, where the reference
+returns them per query head and sums the groups in its wrapper.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors go to the
-plain version; CUDA tensors go to the kernel, or the call raises.
+plain version; CUDA tensors go to the kernel, or the call raises.  On the
+card the dtype picks the kernel, and neither gives way to the other:
+bfloat16 runs on Hopper's tensor cores (wgmma, TMA, fp32 accumulators;
+``flash_attention_*_bf16``), float32 on the CUDA cores (``*_f32``), since
+the tensor cores cannot meet the fp32 tolerances.
 ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` count
 calls that launched the kernel (the backward's one call launches three: the
 delta row sums, dQ and dK/dV).
@@ -27,6 +31,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 SUPPORTED_DIMS = (32, 64, 128)
+_SOURCE, _BWD_SOURCE = "flash_attention_fwd", "flash_attention_bwd"
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
@@ -115,7 +120,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     strides = (ctypes.c_int64 * 14)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         lse.stride(0), lse.stride(1))
-    fn = getattr(_build.load("flash_attention_fwd"), _ENTRY[q.dtype])
+    fn = getattr(_build.load(_SOURCE), _ENTRY[q.dtype])
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -183,7 +188,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     delta = torch.empty_like(lse)
     strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, out, do, dq, dk, dv)
                                       for st in t.stride()[:3]))
-    fn = getattr(_build.load("flash_attention_bwd"), _BWD_ENTRY[q.dtype])
+    fn = getattr(_build.load(_BWD_SOURCE), _BWD_ENTRY[q.dtype])
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

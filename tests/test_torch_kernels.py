@@ -10,6 +10,7 @@ held max-scaled (|a - b| / max|b|) at 2e-6 in float32, as
 ``gpu`` hold the CUDA kernels against their plain versions on a card.
 """
 import math
+import re
 import stat
 
 import jax
@@ -253,6 +254,30 @@ def test_cpu_wrappers_launch_no_kernel():
     assert ms.mamba_scan.launches == 0
 
 
+def _extern_c(source: str) -> dict:
+    """Each ``extern "C"`` entry of ``csrc/<source>.cu``, by name, with its
+    body."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    return {m.group(1): text[m.end():text.index("\n}\n", m.end())]
+            for m in re.finditer(r'extern "C" int (\w+)\(', text)}
+
+
+@pytest.mark.parametrize("entries,source", [
+    (fa._ENTRY, fa._SOURCE), (fa._BWD_ENTRY, fa._BWD_SOURCE)], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("dtype,route", [
+    (torch.float32, "simt::dispatch<float>"), (torch.bfloat16, "tc::dispatch")],
+    ids=["float32", "bfloat16"])
+def test_flash_entries_are_defined_by_the_loaded_source(entries, source, dtype,
+                                                         route):
+    """The wrapper's entry for each dtype is an extern "C" function of the
+    source it loads, and it reaches its own path: bf16 the tensor-core
+    kernels, fp32 the SIMT ones."""
+    defined = _extern_c(source)
+    assert entries[dtype] in defined
+    assert route in defined[entries[dtype]]
+    assert sorted(defined) == sorted(entries.values())
+
+
 # ---------------------------------------------------------------------------
 # reference attention: the port's ref against repro.kernels.ref
 # ---------------------------------------------------------------------------
@@ -369,20 +394,31 @@ def _to(dev, *ts):
     return [t.to(dev) for t in ts]
 
 
+#: the kernel-test cases with q_offset 0, then a negative q_offset (its
+#: first rows see no key), and llama3's geometry causal and windowed
+GPU_FLASH_CASES = [c + (0,) for c in FLASH_CASES] + [
+    (1, 16, 64, 2, 1, 32, True, 4, -8), (2, 1024, 1024, 32, 8, 128, True, 0, 0),
+    (1, 512, 512, 32, 8, 128, True, 256, 0)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,win", FLASH_CASES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,win,q_offset", GPU_FLASH_CASES)
 def test_gpu_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, d,
-                                        causal, win):
+                                        causal, win, q_offset):
     (_, q), (_, k), (_, v) = _qkv((b, sq, sk, h, kv, d), dtype=dtype)
     q, k, v = _to(cuda, q, k, v)
+    kw = dict(causal=causal, window=win, q_offset=q_offset)
     n = fa.flash_attention_fwd.launches
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention_fwd.launches == n + 1
-    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, window=win)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, **kw)
     _close(out.cpu(), pout.float().cpu(), dtype)
     _close(lse.cpu(), plse.cpu())
+    dead = ~fa._mask(sq, sk, causal, win, q_offset, "cpu").any(1)
+    assert bool(dead.any()) == (q_offset < 0)
+    assert torch.all(out.cpu()[:, dead] == 0)
 
 
 @pytest.mark.gpu
@@ -454,6 +490,22 @@ def test_gpu_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, d,
         _scaled_close(t.cpu(), p.float().cpu(), BWD_TOL[dtype])
     if q_offset < 0:
         assert torch.all(grads[0][:, :-q_offset] == 0)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_bwd_bf16_is_deterministic(cuda):
+    """Two bf16 backward calls at llama3's training geometry agree bit for
+    bit: no atomics, one fixed order of every sum."""
+    b, s, h, kv, d = 2, 1024, 32, 8, 128
+    (_, q), (_, k), (_, v) = _qkv((b, s, s, h, kv, d), dtype="bfloat16")
+    do, = [_both(x, "bfloat16")[1] for x in _arrays(9, (b, s, h, d))]
+    q, k, v, do = _to(cuda, q, k, v, do)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(torch.isfinite(x).all() for x in first)
 
 
 @pytest.mark.gpu

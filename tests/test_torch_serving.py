@@ -307,3 +307,49 @@ def test_chip_smoke_exits_nonzero_without_a_card(tmp_path):
                              env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
         assert run.returncode != 0
         assert '"ok": true' not in run.stdout
+
+
+def _ptxas(*kernels):
+    """A fake -Xptxas -v report: (mangled name, spill stores, spill loads)."""
+    return "\n".join(
+        f"ptxas info    : Compiling entry function '{n}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {n}\n"
+        f"    0 bytes stack frame, {st} bytes spill stores, {ld} bytes spill loads\n"
+        f"ptxas info    : Used 168 registers" for n, st, ld in kernels)
+
+
+_FWD_OK = _ptxas(("_ZN11repro_torch2tc22flash_fwd_wgmma_kernelILi128EEEvv", 0, 0),
+                 ("_ZN11repro_torch4simt16flash_fwd_kernelIfLi128EEEvv", 8, 8))
+_BWD_OK = _ptxas(("_ZN11repro_torch2tc25flash_bwd_dq_wgmma_kernelILi64EEEvv", 0, 0),
+                 ("_ZN11repro_torch22flash_bwd_delta_kernelI13__nv_bfloat16Li64EEEvv",
+                  0, 0))
+_HGMMA = "  /*0410*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;\n"
+_HMMA = "  /*0200*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
+
+
+@pytest.mark.parametrize("fwd_report,bwd_report,fwd_sass,bwd_sass,fails", [
+    (_FWD_OK, _BWD_OK, _HGMMA * 3, _HGMMA, None),
+    (_FWD_OK, _BWD_OK, _HGMMA, _HMMA * 2, None),           # mma.sync backward
+    (_FWD_OK, _BWD_OK, _HMMA, _HGMMA, "flash_attention_fwd: SASS"),
+    (_FWD_OK, _BWD_OK, _HGMMA, "FFMA R1, R2, R3, R4 ;", "flash_attention_bwd: SASS"),
+    (_FWD_OK, _BWD_OK.replace("0 bytes spill stores", "16 bytes spill stores", 1),
+     _HGMMA, _HGMMA, "flash_attention_bwd: bf16 kernels spill"),
+    (_ptxas(("_ZN11repro_torch4simt16flash_fwd_kernelIfLi128EEEvv", 0, 0)), _BWD_OK,
+     _HGMMA, _HGMMA, "flash_attention_fwd: bf16 kernels spill"),  # no bf16 kernel
+], ids=["wgmma", "mma-sync-bwd", "fwd-no-hgmma", "bwd-no-tensor-cores",
+        "bwd-spills", "fwd-no-bf16-kernel"])
+def test_chip_smoke_checks_the_tensor_cores(fwd_report, bwd_report, fwd_sass,
+                                            bwd_sass, fails):
+    """Phase 2's check: the flash libraries' SASS holds the tensor-core
+    instructions and their bf16 kernels spill nothing (an fp32 kernel's
+    spills are not its business)."""
+    cs = _chip_smoke()
+    reports = {"flash_attention_fwd": fwd_report, "flash_attention_bwd": bwd_report}
+    sass = {"flash_attention_fwd": fwd_sass, "flash_attention_bwd": bwd_sass}
+    if fails:
+        with pytest.raises(RuntimeError, match=fails):
+            cs.check_tensor_cores(reports, sass)
+    else:
+        counts = cs.check_tensor_cores(reports, sass)
+        assert counts["flash_attention_fwd"]["HGMMA"] >= 1
+        assert sum(counts["flash_attention_bwd"].values()) >= 1
