@@ -13,26 +13,29 @@ phase:
              nvidia-smi; TF32 off for matmuls and convolutions.
 2. build   — the four CUDA kernels compiled from src/repro_torch/csrc, one
              nvcc each, all at once, with nvcc's -Xptxas -v report; the
-             flash libraries' SASS (cuobjdump) must hold tensor-core
-             instructions (HGMMA in the forward, HGMMA or HMMA in the
-             backward) and their bf16 kernels must spill nothing.
+             SASS (cuobjdump) of the decode and flash libraries must hold
+             tensor-core instructions (HGMMA in the flash forward, HGMMA or
+             HMMA in the decode attention and the flash backward) and their
+             bf16 kernels must spill nothing.
 3. kernels — each kernel against its plain PyTorch version on the card: the
              kernel-test cases in fp32 (tolerance 2e-5; the backward 1e-5
              of the largest gradient) and the main paths' shapes in bf16
              (2e-2); times by CUDA events with the L2 cache flushed before
              each call, beside the least time the card could take (bytes at
-             3.35 TB/s, flops at 989 TFLOP/s bf16) and one PyTorch call
+             3.35 TB/s, flops at 989 TFLOP/s bf16), one PyTorch call
              computing the same function as a yardstick
-             (scaled_dot_product_attention, or its autograd backward); for
-             the flash kernels also their device time by torch.profiler.
+             (scaled_dot_product_attention, or its autograd backward) and
+             the kernels' device time by torch.profiler; decode attention
+             also at one row with a full 2048-key cache, the shape of the
+             (1 request, ctx 2048) oracle point.
 3b. scan   — the selective-scan kernel against its plain version: the
              kernel-test cases in fp32 with h0 (5e-5) and falcon-mamba's
              shapes in bf16 (2e-2; prefill B=1 at S=256 and 1024, decode
-             B=8 at S=1 with h0), y and the final state both; times beside
-             the least time the card could take (bytes at 3.35 TB/s, fp32
-             flops at 67 TFLOP/s, one exp per state entry and step at 16
-             per clock per SM); no single PyTorch call computes a selective
-             scan, so it has no library yardstick.
+             B=8 at S=1 with h0), y and the final state both; times and
+             device times beside the least time the card could take (bytes
+             at 3.35 TB/s, fp32 flops at 67 TFLOP/s, one exp per state
+             entry and step at 16 per clock per SM); no single PyTorch call
+             computes a selective scan, so it has no library yardstick.
 4. serving — the Engine serves 8 requests (prompts of 128-1024 tokens, 32
              new tokens each) through the decode kernel; decode-kernel
              launches must equal layers x decode iterations and every logit
@@ -150,7 +153,8 @@ MAMBA_DECODE_REQS = (1, 8)
 
 #: the libraries whose bf16 path runs on the tensor cores, and the SASS
 #: instructions of which one must appear: wgmma (HGMMA), or mma.sync (HMMA)
-TENSOR_CORE_LIBS = {"flash_attention_fwd": ("HGMMA",),
+TENSOR_CORE_LIBS = {"decode_attention": ("HGMMA", "HMMA"),
+                    "flash_attention_fwd": ("HGMMA",),
                     "flash_attention_bwd": ("HGMMA", "HMMA")}
 
 SOURCES = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -216,11 +220,11 @@ def _time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _device_ms(fn, device, reps: int = 10):
-    """Mean device time of one call's flash kernels by torch.profiler, calls
-    back to back with the L2 cache warm: the card's own time, without the
-    host's launch path and the cold cache that ``_time_ms`` includes.  None
-    off the card."""
+def _device_ms(fn, device, name: str, reps: int = 10):
+    """Mean device time of one call's kernels whose name holds ``name`` by
+    torch.profiler, calls back to back with the L2 cache warm: the card's own
+    time, without the host's launch path and the cold cache that
+    ``_time_ms`` includes.  None off the card."""
     if device.type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
@@ -231,7 +235,7 @@ def _device_ms(fn, device, reps: int = 10):
             fn()
         torch.cuda.synchronize(device)
     us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-             if "flash_" in e.key)
+             if name in e.key)
     return us / reps / 1e3
 
 
@@ -314,8 +318,9 @@ def sass_counts(sass: str) -> dict:
 
 def check_tensor_cores(reports: dict, sass: dict) -> dict:
     """Raises unless each library of TENSOR_CORE_LIBS holds the tensor-core
-    instructions it must, and unless its bf16 kernels (the ``wgmma`` kernels
-    and every bf16 instantiation) spill nothing.  ``sass`` maps a library
+    instructions it must, and unless its bf16 kernels (those of namespace
+    ``tc``, the ``wgmma`` kernels and every bf16 instantiation) spill
+    nothing.  ``sass`` maps a library
     to its SASS listing; returns each one's instruction counts."""
     counts = {}
     for name, ops in TENSOR_CORE_LIBS.items():
@@ -323,7 +328,7 @@ def check_tensor_cores(reports: dict, sass: dict) -> dict:
         _require(any(counts[name][op] for op in ops),
                  f"{name}: SASS holds {' or '.join(ops)} ({counts[name]})")
         bf16 = {fn: sp for fn, sp in ptxas_spills(reports[name]).items()
-                if "wgmma" in fn or "bfloat16" in fn}
+                if "repro_torch2tc" in fn or "wgmma" in fn or "bfloat16" in fn}
         _require(bool(bf16) and not any(a or b for a, b in bf16.values()),
                  f"{name}: bf16 kernels spill nothing ({bf16})")
     return counts
@@ -352,11 +357,14 @@ def phase_build(cfg, device) -> dict:
     return reports
 
 
-def _decode_case(rng, b, kv, g, smax, d, window, dtype, device, timed: bool):
+def _decode_case(rng, b, kv, g, smax, d, window, dtype, device, timed: bool,
+                 full: bool = False):
+    """One decode call on the kernel and on the plain version; lengths drawn
+    from 1..smax, or every row's cache full with ``full``."""
     q = _randn(rng, (b, kv, g, d), dtype, device)
     kc = _randn(rng, (b, smax, kv, d), dtype, device)
     vc = _randn(rng, (b, smax, kv, d), dtype, device)
-    lens = rng.integers(1, smax + 1, b)
+    lens = np.full(b, smax) if full else rng.integers(1, smax + 1, b)
     lengths = torch.as_tensor(lens, dtype=torch.int32, device=device)
     out = da.decode_attention(q, kc, vc, lengths, window=window)
     plain = da.decode_attention_plain(q, kc, vc, lengths, window=window)
@@ -372,6 +380,8 @@ def _decode_case(rng, b, kv, g, smax, d, window, dtype, device, timed: bool):
                                                   dtype)
         res["ms"] = _time_ms(lambda: da.decode_attention(q, kc, vc, lengths,
                                                          window=window), device)
+        res["device_ms"] = _device_ms(lambda: da.decode_attention(
+            q, kc, vc, lengths, window=window), device, "decode_")
         res["plain_ms"] = _time_ms(lambda: da.decode_attention_plain(
             q, kc, vc, lengths, window=window), device)
         qh = q.reshape(b, kv * g, 1, d)
@@ -402,7 +412,7 @@ def _flash_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
                                                   dtype)
         res["ms"] = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), device)
         res["device_ms"] = _device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                                      device)
+                                      device, "flash_")
         res["plain_ms"] = _time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
                                    device)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
@@ -452,7 +462,7 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
         res["ms"] = _time_ms(lambda: fa.flash_attention_bwd(
             q, k, v, out, lse, do, **kw), device)
         res["device_ms"] = _device_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, out, lse, do, **kw), device)
+            q, k, v, out, lse, do, **kw), device, "flash_")
         res["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, lse, do, **kw), device)
         leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
@@ -493,6 +503,13 @@ def phase_kernels(cfg, device) -> dict:
             kv, hd, True, 0, bf16, device, True)}
     errs["decode_attention"].append(_decode_case(
         rng, b, kv, g, MAX_SEQ, hd, WINDOW, bf16, device, False))
+    # the (1 request, ctx 2048) oracle point's shape: one row, a full cache
+    full = _decode_case(rng, 1, kv, g, MAX_SEQ, hd, 0, bf16, device, True,
+                        full=True)
+    errs["decode_attention"].append(full)
+    main["decode_attention"]["timed"] = {
+        f"B={b} random lengths": dict(main["decode_attention"]),
+        f"B=1 full ctx {MAX_SEQ}": full}
     errs["flash_attention_fwd"].append(_flash_case(
         rng, 1, PREFILL_LEN, PREFILL_LEN, cfg.n_heads, kv, hd, True, WINDOW,
         bf16, device, False))
@@ -513,7 +530,16 @@ def phase_kernels(cfg, device) -> dict:
               f"main path {res['ms']:.4f} ms{dev}, plain {res['plain_ms']:.4f} ms, "
               f"library {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
               f"ms ({res['bound_by']}); {card}")
+        for shape, r in res.get("timed", {}).items():
+            print(f"  {shape}: kernel {r['ms']:.4f} ms{_dev(r)}, plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return main
+
+
+def _dev(res) -> str:
+    return (f" (device {res['device_ms']:.4f} ms)"
+            if res.get("device_ms") is not None else "")
 
 
 def _scan_case(rng, b, s, di, n, dtype, device, *, h0: bool, timed: bool,
@@ -550,6 +576,7 @@ def _scan_case(rng, b, s, di, n, dtype, device, *, h0: bool, timed: bool,
             nbytes, b * s * di * (6 * n + 3), f32, exps=b * s * di * n,
             device=device)
         res["ms"] = _time_ms(lambda: ms.mamba_scan(*args), device)
+        res["device_ms"] = _device_ms(lambda: ms.mamba_scan(*args), device, "scan_")
         res["plain_ms"] = _time_ms(lambda: ms.mamba_scan_plain(*args), device)
         res["library_ms"] = None      # no PyTorch call computes the scan
     return res
@@ -579,8 +606,9 @@ def phase_scan(cfg, device) -> dict:
           f"N={n}, bf16; library: none (no single PyTorch call computes a "
           f"selective scan); {_card(device)}")
     for shape, res in timed.items():
-        print(f"  {shape}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
-              f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+        print(f"  {shape}: kernel {res['ms']:.4f} ms{_dev(res)}, plain "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']})")
     return {"mamba_scan": main}
 
 
@@ -1001,11 +1029,13 @@ def kernels_line(kernels: dict, serving: dict, prefill: dict,
                 "flash_attention_bwd": train["flash_bwd_launches"],
                 "mamba_scan": mamba_serving["scan_launches"]
                 + mamba_prefill["scan_launches"]}
+    times = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
-         **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")}}
+         "max_abs_err": res["max_abs_err"], **{k: res.get(k) for k in times},
+         "timed": {shape: {k: r.get(k) for k in times}
+                   for shape, r in res.get("timed", {}).items()}}
         for name, res in kernels.items()]}
     print(json.dumps(line))
     return line

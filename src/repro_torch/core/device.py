@@ -6,6 +6,7 @@ a silent move to the CPU.
 """
 from __future__ import annotations
 
+import functools
 from typing import Union
 
 import torch
@@ -26,3 +27,10 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, asked once per device: the
+    kernels size their grids by it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

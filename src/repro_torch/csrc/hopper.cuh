@@ -1,6 +1,7 @@
-// Hopper building blocks of the tensor-core attention kernels: mbarriers,
-// TMA tile loads through a tensor map, wgmma shared-memory descriptors and
-// the wgmma instructions themselves (bf16 inputs, fp32 accumulators).
+// Hopper building blocks of the port's kernels: mbarriers, TMA tile loads
+// through a tensor map, wgmma shared-memory descriptors and the wgmma
+// instructions themselves (bf16 inputs, fp32 accumulators); cp.async
+// copies, ldmatrix and mma.sync; the special-function unit's 2^x.
 //
 // Layout conventions.  A tile of `rows` rows of a (B, S, heads, D) bf16
 // tensor lands in shared memory as D / kInner chunks of rows x kInner
@@ -276,6 +277,69 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies and warp-level tensor-core products (sm_80 and later)
+// ---------------------------------------------------------------------------
+
+// Copies 16 bytes from global to shared memory without the registers; with
+// `full` false it reads nothing and writes 16 zero bytes (`src` must still
+// be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// Closes the copies issued since the last commit into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 contiguous bytes) and gets
+// r[i] = elements (l / 4, 2 (l % 4) + {0, 1}) of matrix i; `trans` gives
+// each matrix transposed, r[i] = elements (2 (l % 4) + {0, 1}, l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16, row-major fragments) * b (16 x 8,
+// bf16, column fragments).  Fragments of lane l: a0 (row l/4, cols 2(l%4)
+// + {0,1}), a1 (row + 8), a2 (cols + 8), a3 (both); b0 (rows 2(l%4) + {0,1},
+// col l/4), b1 (rows + 8); d0, d1 (row l/4, cols 2(l%4) + {0,1}), d2, d3
+// (row + 8).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit: one MUFU.EX2, relative error about
+// 2^-22, subnormal results flushed to zero.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Host side: cuTensorMapEncodeTiled from libcuda, which the
 // process has loaded already (the kernels link only the runtime).

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -28,6 +28,7 @@ SOURCES = ("decode_attention", "flash_attention_fwd", "flash_attention_bwd",
            "mamba_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[tuple, Callable[..., int]] = {}
 
 
 def find_nvcc() -> str:
@@ -92,3 +93,15 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
+
+
+def entry(name: str, symbol: str, argtypes) -> Callable[..., int]:
+    """The ``extern "C"`` function ``symbol`` of ``csrc/<name>.cu``, its
+    argument types set and its result an int, looked up once: a launch then
+    spends no host time on ctypes' bookkeeping."""
+    key = (name, symbol)
+    if key not in _ENTRIES:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[key] = fn
+    return _ENTRIES[key]

@@ -8,7 +8,12 @@ strides, where the reference's wrapper transposes the whole cache per call.
 
 ``decode_attention`` dispatches on the device of its tensors: CPU tensors
 go to ``decode_attention_plain``; CUDA tensors go to the kernel, or the call
-raises.  ``decode_attention.launches`` counts kernel launches.
+raises.  On the card the dtype picks the kernel: bfloat16 splits each (row,
+KV head)'s keys over ``num_splits`` blocks on the tensor cores and merges
+their partial softmaxes in a second launch (``decode_attention_bf16``);
+float32 runs one CUDA-core block per (row, KV head) (``*_f32``), since the
+tensor cores cannot meet the fp32 tolerance.  ``decode_attention.launches``
+counts calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -17,14 +22,29 @@ import math
 
 import torch
 
+from repro_torch.core.device import sm_count
 from repro_torch.kernels import _build
 
 SUPPORTED_DIMS = (32, 64, 128)
 MAX_GROUP = 32
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-             + [ctypes.c_int64] * 10 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
+             + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+#: the bf16 kernel's blocks: about this many per SM over the whole grid (two
+#: fit at D = 128), and at least this many keys per split (two 16-key tiles
+#: for each of 4 warps, so that a warp's copies run ahead of its products)
+SPLIT_BLOCKS_PER_SM, KEYS_PER_SPLIT = 2, 128
+
+
+def num_splits(batch: int, kv_heads: int, smax: int, sms: int) -> int:
+    """Blocks that share the keys of one (row, KV head) in the bf16 kernel:
+    enough for about SPLIT_BLOCKS_PER_SM blocks per SM, no more than a cache
+    of ``smax`` keys fills with KEYS_PER_SPLIT each.  A function of the
+    shapes and the card only, never of the lengths, so that a call can be
+    captured in a CUDA graph and two calls split alike."""
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // (batch * kv_heads))
+    return max(1, min(want, -(-smax // KEYS_PER_SPLIT)))
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *,
@@ -89,18 +109,24 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                                       window=window)
     _check(q, k_cache, v_cache, lengths)
     b, kv, g, d = q.shape
-    dv = v_cache.shape[3]
+    smax, dv = k_cache.shape[1], v_cache.shape[3]
     out = torch.empty((b, kv, g, dv), dtype=q.dtype, device=q.device)
-    fn = getattr(_build.load("decode_attention"), _ENTRY[q.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    splits, part = 1, None
+    if q.dtype == torch.bfloat16:
+        splits = num_splits(b, kv, smax, sm_count(q.device))
+    if splits > 1:          # each split's unnormalised acc, then (m, l)
+        part = torch.empty(b * kv * splits * g * (dv + 2), dtype=torch.float32,
+                           device=q.device)
+    strides = (ctypes.c_int64 * 10)(
+        q.stride(0), q.stride(2), *k_cache.stride()[:3], *v_cache.stride()[:3],
+        out.stride(0), out.stride(2))
+    fn = _build.entry("decode_attention", _ENTRY[q.dtype], _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 lengths.data_ptr(), out.data_ptr(), b, kv, g, d, dv,
-                 k_cache.shape[1], int(window), 1.0 / math.sqrt(d),
-                 q.stride(0), q.stride(2), k_cache.stride(0), k_cache.stride(1),
-                 k_cache.stride(2), v_cache.stride(0), v_cache.stride(1),
-                 v_cache.stride(2), out.stride(0), out.stride(2), stream)
+                 lengths.data_ptr(), out.data_ptr(),
+                 part.data_ptr() if part is not None else None, b, kv, g, d, dv,
+                 smax, int(window), splits, 1.0 / math.sqrt(d), strides, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     decode_attention.launches += 1

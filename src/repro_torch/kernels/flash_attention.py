@@ -120,8 +120,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     strides = (ctypes.c_int64 * 14)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         lse.stride(0), lse.stride(1))
-    fn = getattr(_build.load(_SOURCE), _ENTRY[q.dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.entry(_SOURCE, _ENTRY[q.dtype], _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -188,8 +187,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     delta = torch.empty_like(lse)
     strides = (ctypes.c_int64 * 24)(*(st for t in (q, k, v, out, do, dq, dk, dv)
                                       for st in t.stride()[:3]))
-    fn = getattr(_build.load(_BWD_SOURCE), _BWD_ENTRY[q.dtype])
-    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    fn = _build.entry(_BWD_SOURCE, _BWD_ENTRY[q.dtype], _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -9,6 +9,7 @@ held max-scaled (|a - b| / max|b|) at 2e-6 in float32, as
 ``test_pallas_flash_backward`` holds it.  Tests marked
 ``gpu`` hold the CUDA kernels against their plain versions on a card.
 """
+import ctypes
 import math
 import re
 import stat
@@ -278,6 +279,35 @@ def test_flash_entries_are_defined_by_the_loaded_source(entries, source, dtype,
     assert sorted(defined) == sorted(entries.values())
 
 
+@pytest.mark.parametrize("dtype,route", [
+    (torch.float32, "simt::launch<float>"), (torch.bfloat16, "tc::dispatch")],
+    ids=["float32", "bfloat16"])
+def test_decode_entries_are_defined_by_the_loaded_source(dtype, route):
+    """The decode wrapper's entry for each dtype is an extern "C" function of
+    csrc/decode_attention.cu, and it reaches its own path: bf16 the split-KV
+    tensor-core kernels, fp32 the SIMT one; the source defines no entry the
+    wrapper does not name."""
+    defined = _extern_c("decode_attention")
+    assert route in defined[da._ENTRY[dtype]]
+    assert sorted(defined) == sorted(da._ENTRY.values())
+
+
+@pytest.mark.parametrize("b,kv,smax,sms", [
+    (8, 8, 2048, 132), (1, 8, 2048, 132), (1, 8, 512, 132), (2, 2, 256, 132),
+    (64, 32, 4096, 132), (1, 1, 16, 132), (3, 1, 100, 114)])
+def test_decode_splits_fill_the_card_without_empty_tiles(b, kv, smax, sms):
+    """Enough blocks for SPLIT_BLOCKS_PER_SM per SM where the cache has the
+    keys for it, never a split of fewer than KEYS_PER_SPLIT keys of a full
+    cache, and the same answer every time (shapes and card only)."""
+    splits = da.num_splits(b, kv, smax, sms)
+    assert splits == da.num_splits(b, kv, smax, sms) >= 1
+    assert splits <= max(1, math.ceil(smax / da.KEYS_PER_SPLIT))
+    assert (b * kv * splits >= da.SPLIT_BLOCKS_PER_SM * sms
+            or splits == math.ceil(smax / da.KEYS_PER_SPLIT))
+    if (b, kv, smax) == (8, 8, 2048):          # llama3 serving: 9 splits
+        assert b * kv * splits >= 2 * sms
+
+
 # ---------------------------------------------------------------------------
 # reference attention: the port's ref against repro.kernels.ref
 # ---------------------------------------------------------------------------
@@ -370,6 +400,30 @@ def test_build_compiles_each_source_once(tmp_path, monkeypatch):
     assert _build.build() == reports
 
 
+def test_entry_looks_up_each_symbol_once(monkeypatch):
+    """A wrapper's entry is fetched from the loaded library, typed, and kept:
+    later launches reuse it."""
+    class Lib:
+        def __init__(self):
+            self.fetched = 0
+
+        def __getattr__(self, symbol):
+            self.fetched += 1
+
+            def fn(*args):
+                return 0
+            return fn
+    lib = Lib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    argtypes = [ctypes.c_void_p, ctypes.c_int]
+    first = _build.entry("decode_attention", "decode_attention_bf16", argtypes)
+    again = _build.entry("decode_attention", "decode_attention_bf16", argtypes)
+    other = _build.entry("mamba_scan", "mamba_scan_bf16", argtypes)
+    assert first is again and other is not first and lib.fetched == 2
+    assert first.argtypes == argtypes and first.restype is ctypes.c_int
+
+
 def test_build_failure_raises_with_the_compiler_output(tmp_path, monkeypatch):
     _fake_nvcc(tmp_path, "echo 'error: no sm_90a here'; exit 2\n")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
@@ -446,6 +500,72 @@ def test_gpu_decode_length_zero_gives_zeros(cuda):
     out = ops.decode_attention(q, kc, vc, lengths)
     assert torch.all(out[0] == 0)
     _close(out[1].cpu(), ref.decode_attention(q, kc, vc, lengths)[1].cpu())
+
+
+#: (b, h, kv, smax, d, dv, window, lengths): a row shorter than the number
+#: of splits, empty and full rows, a window, G in {1, 8, 32}, Dv != D
+DECODE_EDGE_CASES = [
+    (1, 32, 8, 2048, 128, 128, 0, [3]),
+    (3, 8, 2, 512, 64, 64, 0, [0, 512, 17]),
+    (2, 32, 8, 2048, 128, 128, 256, [2048, 100]),
+    (2, 8, 8, 1024, 64, 64, 0, [1000, 1]),
+    (2, 64, 8, 1024, 128, 128, 0, [777, 1024]),
+    (2, 32, 1, 512, 64, 64, 0, [300, 512]),
+    (2, 8, 2, 512, 128, 64, 0, [400, 33]),
+    (1, 4, 2, 256, 32, 128, 16, [200]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,smax,d,dv,win,lens", DECODE_EDGE_CASES)
+def test_gpu_decode_edge_cases_match_plain(cuda, dtype, b, h, kv, smax, d, dv,
+                                           win, lens):
+    q, kc, vc = [_both(x, dtype)[1].to(cuda) for x in _arrays(
+        4, (b, kv, h // kv, d), (b, smax, kv, d), (b, smax, kv, dv))]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = da.decode_attention(q, kc, vc, lengths, window=win)
+    torch.cuda.synchronize()
+    assert out.shape == (b, kv, h // kv, dv) and out.dtype == q.dtype
+    _close(out.cpu(), da.decode_attention_plain(q, kc, vc, lengths,
+                                                window=win).float().cpu(), dtype)
+    assert all(torch.all(out[i] == 0) for i, n in enumerate(lens) if n == 0)
+
+
+def _llama_decode(cuda, seed=5):
+    """bf16 decode inputs at llama3's geometry, lengths drawn from 1..2048."""
+    q, kc, vc = [_both(x, "bfloat16")[1].to(cuda) for x in _arrays(
+        seed, (8, 8, 4, 128), (8, 2048, 8, 128), (8, 2048, 8, 128))]
+    lens = np.random.default_rng(seed).integers(1, 2049, 8).astype(np.int32)
+    return q, kc, vc, torch.from_numpy(lens).to(cuda)
+
+
+@pytest.mark.gpu
+def test_gpu_decode_bf16_is_deterministic(cuda):
+    """Two bf16 calls agree bit for bit: the splits' partial softmaxes are
+    merged in one fixed order, without atomics."""
+    args = _llama_decode(cuda)
+    first, second = da.decode_attention(*args), da.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.isfinite(first).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_decode_kernel_captures_in_a_cuda_graph(cuda, dtype):
+    """The split count comes from the shapes, not from the lengths on the
+    card, and the scratch from PyTorch's allocator: a call captures in a
+    CUDA graph and its replay gives the eager result."""
+    q, kc, vc, lengths = _llama_decode(cuda)
+    q, kc, vc = (t.to(getattr(torch, dtype)) for t in (q, kc, vc))
+    eager = da.decode_attention(q, kc, vc, lengths)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, kc, vc, lengths)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.gpu

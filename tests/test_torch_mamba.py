@@ -438,6 +438,57 @@ def test_phases_for_matches_the_reference(pair):
 
 
 # ---------------------------------------------------------------------------
+# the kernel's source, work split and row staging
+# ---------------------------------------------------------------------------
+
+def test_scan_entries_are_defined_by_the_loaded_source():
+    """Every extern "C" entry of csrc/mamba_scan.cu is one the wrapper names,
+    each for its own dtype, and both reach the step kernel at S = 1 and the
+    two chunk passes otherwise, on the special-function unit's exponent."""
+    import re
+    text = (ROOT / "src/repro_torch/csrc/mamba_scan.cu").read_text()
+    entries = dict(re.findall(r"^REPRO_SCAN_ENTRY\((\w+), ([\w:]+)\)$", text,
+                              re.MULTILINE))
+    assert entries == {ms._ENTRY[torch.float32]: "float",
+                       ms._ENTRY[torch.bfloat16]: "__nv_bfloat16"}
+    launch = text[text.index("cudaError_t launch_n("):text.index("int launch(")]
+    assert "scan_step_kernel<T, N>" in launch
+    assert launch.count("scan_chunk_kernel<T, N>") == 2
+    assert "expf(" not in text and text.count("ex2_approx(") >= 3
+
+
+@pytest.mark.parametrize("b,s,di", [(1, 1024, 8192), (1, 256, 8192), (8, 2, 8192),
+                                    (1, 300, 64), (2, 50, 16), (1, 2048, 64),
+                                    (4, 4097, 256), (1, 17, 8)])
+def test_scan_chunks_cover_the_sequence(b, s, di):
+    """Chunks of whole 16-step units, at least MIN_CHUNK steps where S has
+    them, covering S exactly once (the last one may be shorter), and enough
+    at falcon-mamba's prefill to fill the card several times over."""
+    chunk, chunks = ms.scan_chunks(b, s, di, 132)
+    assert chunk % ms.CHUNK_STEPS == 0 and (chunks - 1) * chunk < s <= chunks * chunk
+    assert chunks == 1 or chunk >= ms.MIN_CHUNK - ms.CHUNK_STEPS
+    assert (chunk, chunks) == ms.scan_chunks(b, s, di, 132)
+    if (b, s, di) == (1, 1024, 8192):
+        blocks = (chunks - 1) * di // ms.CHANNELS_PER_BLOCK
+        assert chunks >= 4 and blocks >= ms.SCAN_BLOCKS_PER_SM * 132
+
+
+def test_scan_rows_are_staged_only_when_the_kernel_cannot_copy_them():
+    """x_proj's column slices go to the kernel as they are; a B or C whose
+    rows are not whole aligned 16-byte vectors is copied into padded rows
+    with the same values."""
+    xdbc = torch.randn(2, 5, 256 + 32).to(torch.bfloat16)
+    Bc = xdbc[..., 256:272]
+    assert ms._vector_rows(Bc) is Bc
+    narrow = torch.randn(2, 5, 4 + 8).to(torch.bfloat16)[..., 4:8]   # N=4 bf16
+    rows = ms._vector_rows(narrow)
+    assert rows.shape == (2, 5, 8) and rows.stride(-1) == 1
+    assert torch.equal(rows[..., :4], narrow) and not rows[..., 4:].any()
+    strided = torch.randn(2, 16, 5).transpose(1, 2)                   # n stride 5
+    assert torch.equal(ms._vector_rows(strided)[..., :16], strided)
+
+
+# ---------------------------------------------------------------------------
 # chip_smoke.py's falcon-mamba phases on the CPU
 # ---------------------------------------------------------------------------
 
@@ -525,6 +576,41 @@ def test_gpu_scan_kernel_matches_plain(cuda, dtype, b, s, di, n, dt_rank,
     torch.testing.assert_close(h, ph, atol=tol, rtol=tol)
 
 
+#: (b, s, di, n): S spanning many chunks, S not a multiple of the chunk,
+#: N = 4 (bf16 rows staged), several rows
+GPU_CHUNK_CASES = [(1, 2048, 64, 8), (1, 300, 8192, 16), (3, 777, 96, 4),
+                   (2, 1000, 256, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("b,s,di,n", GPU_CHUNK_CASES)
+def test_gpu_scan_chunks_match_plain(cuda, dtype, b, s, di, n, with_h0):
+    chunk, chunks = ms.scan_chunks(b, s, di, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    assert chunks > 1
+    *args, h0 = _card_inputs(cuda, b, s, di, n, dtype, seed=3)
+    args.append(h0 if with_h0 else None)
+    y, h = ms.mamba_scan(*args)
+    py, ph = ms.mamba_scan_plain(*args)
+    tol = GPU_TOL[dtype]
+    torch.testing.assert_close(y.float(), py.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, ph, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(1, 1024), (8, 1)], ids=["prefill", "decode"])
+def test_gpu_scan_bf16_is_deterministic(cuda, b, s):
+    """Two bf16 calls at falcon-mamba's width agree bit for bit: chunks are
+    joined in one fixed order, without atomics."""
+    args = _card_inputs(cuda, b, s, 8192, 16, torch.bfloat16, dt_rank=256)
+    (y1, h1), (y2, h2) = ms.mamba_scan(*args), ms.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.isfinite(y1.float()).all() and torch.isfinite(h1).all()
+
+
 @pytest.mark.gpu
 def test_gpu_scan_wrapper_raises_on_unsupported_inputs(cuda):
     x, dt, A, Bc, Cc, D, h0 = _card_inputs(cuda, 1, 8, 32, 8, torch.float32)
@@ -543,8 +629,9 @@ def test_gpu_scan_wrapper_raises_on_unsupported_inputs(cuda):
 
 
 @pytest.mark.gpu
-def test_gpu_scan_kernel_captures_in_a_cuda_graph(cuda):
-    args = _card_inputs(cuda, 2, 96, 8192, 16, torch.bfloat16, dt_rank=256)
+@pytest.mark.parametrize("s", [96, 1], ids=["prefill", "decode"])
+def test_gpu_scan_kernel_captures_in_a_cuda_graph(cuda, s):
+    args = _card_inputs(cuda, 2, s, 8192, 16, torch.bfloat16, dt_rank=256)
     eager_y, eager_h = ms.mamba_scan(*args)
     seconds = cuda_events(ms.mamba_scan, args, repeats=5)
     assert 0 < seconds < 1

@@ -247,9 +247,14 @@ def test_chip_smoke_phases_on_cpu(capsys):
         "decode_attention", "flash_attention_fwd", "flash_attention_bwd",
         "mamba_scan"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "timed"}
     for k in line["kernels"]:
         assert set(k) == keys and k["launches"] == 0 and k["max_abs_err"] == 0
+        assert k["device_ms"] is None           # no profiler time off the card
+        assert all(set(r) == keys & {"ms", "device_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms"}
+                   for r in k["timed"].values())
         assert (ROOT / k["source"]).is_file()
         path, line_no = k["replaces"].split(":")
         assert "pallas_call" in "".join(
@@ -262,6 +267,10 @@ def test_chip_smoke_phases_on_cpu(capsys):
     scan = line["kernels"][-1]
     assert scan["library_ms"] is None and scan["bound_by"] in (
         "bytes", "operations", "exp")
+    assert sorted(scan["timed"]) == ["decode B=8 S=1", "prefill B=1 S=1024",
+                                     "prefill B=1 S=256"]
+    assert sorted(line["kernels"][0]["timed"]) == ["B=1 full ctx 2048",
+                                                   "B=8 random lengths"]
     assert mamba_serving["chunks"] > 0 and mamba_serving["min_cosine"] > 0.999
     assert min(mamba_prefill[k] for k in (
         "cosine", "h_cosine", "layer_cosine", "layer_h_cosine", "fp32_cosine",
@@ -327,25 +336,44 @@ _HGMMA = "  /*0410*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;\n"
 _HMMA = "  /*0200*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
 
 
-@pytest.mark.parametrize("fwd_report,bwd_report,fwd_sass,bwd_sass,fails", [
-    (_FWD_OK, _BWD_OK, _HGMMA * 3, _HGMMA, None),
-    (_FWD_OK, _BWD_OK, _HGMMA, _HMMA * 2, None),           # mma.sync backward
-    (_FWD_OK, _BWD_OK, _HMMA, _HGMMA, "flash_attention_fwd: SASS"),
-    (_FWD_OK, _BWD_OK, _HGMMA, "FFMA R1, R2, R3, R4 ;", "flash_attention_bwd: SASS"),
+_DEC_OK = _ptxas(
+    ("_ZN11repro_torch2tc19decode_split_kernelILi128ELi128ELi1EEEvPK13__nv_bfloat16",
+     0, 0),
+    ("_ZN11repro_torch2tc19decode_merge_kernelILi128EEEvPKfP13__nv_bfloat16", 0, 0),
+    ("_ZN11repro_torch4simt23decode_attention_kernelIfEEvPKT_", 24, 24))
+
+
+@pytest.mark.parametrize("fwd_report,bwd_report,fwd_sass,bwd_sass,dec_report,"
+                         "dec_sass,fails", [
+    (_FWD_OK, _BWD_OK, _HGMMA * 3, _HGMMA, _DEC_OK, _HMMA, None),
+    (_FWD_OK, _BWD_OK, _HGMMA, _HMMA * 2, _DEC_OK, _HMMA, None),  # mma.sync backward
+    (_FWD_OK, _BWD_OK, _HMMA, _HGMMA, _DEC_OK, _HMMA, "flash_attention_fwd: SASS"),
+    (_FWD_OK, _BWD_OK, _HGMMA, "FFMA R1, R2, R3, R4 ;", _DEC_OK, _HMMA,
+     "flash_attention_bwd: SASS"),
     (_FWD_OK, _BWD_OK.replace("0 bytes spill stores", "16 bytes spill stores", 1),
-     _HGMMA, _HGMMA, "flash_attention_bwd: bf16 kernels spill"),
+     _HGMMA, _HGMMA, _DEC_OK, _HMMA, "flash_attention_bwd: bf16 kernels spill"),
     (_ptxas(("_ZN11repro_torch4simt16flash_fwd_kernelIfLi128EEEvv", 0, 0)), _BWD_OK,
-     _HGMMA, _HGMMA, "flash_attention_fwd: bf16 kernels spill"),  # no bf16 kernel
+     _HGMMA, _HGMMA, _DEC_OK, _HMMA,
+     "flash_attention_fwd: bf16 kernels spill"),  # no bf16 kernel
+    (_FWD_OK, _BWD_OK, _HGMMA, _HGMMA, _DEC_OK, _HGMMA, None),    # wgmma decode
+    (_FWD_OK, _BWD_OK, _HGMMA, _HGMMA, _DEC_OK, "FFMA R1, R2, R3, R4 ;",
+     "decode_attention: SASS"),
+    (_FWD_OK, _BWD_OK, _HGMMA, _HGMMA,
+     _DEC_OK.replace("0 bytes spill loads", "8 bytes spill loads", 1), _HMMA,
+     "decode_attention: bf16 kernels spill"),
 ], ids=["wgmma", "mma-sync-bwd", "fwd-no-hgmma", "bwd-no-tensor-cores",
-        "bwd-spills", "fwd-no-bf16-kernel"])
+        "bwd-spills", "fwd-no-bf16-kernel", "wgmma-decode",
+        "decode-no-tensor-cores", "decode-spills"])
 def test_chip_smoke_checks_the_tensor_cores(fwd_report, bwd_report, fwd_sass,
-                                            bwd_sass, fails):
-    """Phase 2's check: the flash libraries' SASS holds the tensor-core
-    instructions and their bf16 kernels spill nothing (an fp32 kernel's
-    spills are not its business)."""
+                                            bwd_sass, dec_report, dec_sass, fails):
+    """Phase 2's check: the SASS of the decode and flash libraries holds the
+    tensor-core instructions and their bf16 kernels spill nothing (an fp32
+    kernel's spills are not its business)."""
     cs = _chip_smoke()
-    reports = {"flash_attention_fwd": fwd_report, "flash_attention_bwd": bwd_report}
-    sass = {"flash_attention_fwd": fwd_sass, "flash_attention_bwd": bwd_sass}
+    reports = {"flash_attention_fwd": fwd_report, "flash_attention_bwd": bwd_report,
+               "decode_attention": dec_report}
+    sass = {"flash_attention_fwd": fwd_sass, "flash_attention_bwd": bwd_sass,
+            "decode_attention": dec_sass}
     if fails:
         with pytest.raises(RuntimeError, match=fails):
             cs.check_tensor_cores(reports, sass)
@@ -353,3 +381,4 @@ def test_chip_smoke_checks_the_tensor_cores(fwd_report, bwd_report, fwd_sass,
         counts = cs.check_tensor_cores(reports, sass)
         assert counts["flash_attention_fwd"]["HGMMA"] >= 1
         assert sum(counts["flash_attention_bwd"].values()) >= 1
+        assert sum(counts["decode_attention"].values()) >= 1
