@@ -5,9 +5,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's main paths for llama3-8b and falcon-mamba-7b at full
-width in bf16 (random weights from seed 0) and checks them, one line per
-phase:
+It drives the port's main paths for llama3-8b, falcon-mamba-7b and
+granite-20b at full width in bf16 (random weights from seed 0) and checks
+them, one line per phase:
 
 1. device  — the card's name and count, its name and power limit from
              nvidia-smi; TF32 off for matmuls and convolutions.
@@ -27,7 +27,10 @@ phase:
              (scaled_dot_product_attention, or its autograd backward) and
              the kernels' device time by torch.profiler; decode attention
              also at one row with a full 2048-key cache, the shape of the
-             (1 request, ctx 2048) oracle point.
+             (1 request, ctx 2048) oracle point, and at granite-20b's
+             serving shape (B=8, KV=1, a GQA group of 48 run as two slices
+             of 32 rows, D=128), with the K/V bytes the second slice reads
+             again; the fp32 cases include groups of 48 and 40.
 3b. scan   — the selective-scan kernel against its plain version: the
              kernel-test cases in fp32 with h0 (5e-5) and falcon-mamba's
              shapes in bf16 (2e-2; prefill B=1 at S=256 and 1024, decode
@@ -37,10 +40,15 @@ phase:
              entry and step at 16 per clock per SM); no single PyTorch call
              computes a selective scan, so it has no library yardstick.
 4. serving — the Engine serves 8 requests (prompts of 128-1024 tokens, 32
-             new tokens each) through the decode kernel; decode-kernel
-             launches must equal layers x decode iterations and every logit
-             must be finite; then one decode step on the final cache with
-             the kernel and with the plain reference must agree (cosine
+             new tokens each) through the decode kernel, twice, replaying a
+             CUDA graph per step (captured outside the clock); decode-kernel
+             launches must equal layers x decode iterations in each run and
+             every logit must be finite; both makespans, their ratio, TTFT
+             and TPOT are printed, and the device's idle share over one
+             decode iteration (torch.profiler: the union of its kernels'
+             device intervals over the iteration's time on the engine
+             clock); then one decode step on the final cache with the
+             kernel and with the plain reference must agree (cosine
              similarity >= 0.99 in every row).
 5. prefill — Model.prefill on a 1024-token prompt through the flash kernel
              (one launch per layer), its last logits against the plain
@@ -61,10 +69,12 @@ phase:
              one call); the (8, 2048) decode point must exceed (1, 512).
 7. mamba serving — after llama3's weights are released, the Engine serves
              falcon-mamba-7b at full depth (64 layers) with the requests of
-             phase 4: exact-length prefill chunks, scan launches equal to
-             layers x (prefill chunks + decode iterations), every logit
-             finite; then one decode step on copies of the final state with
-             the kernel and with the plain scan (cosine >= 0.99 per row).
+             phase 4, twice, from graphs as phase 4: exact-length prefill
+             chunks, scan launches equal to layers x (prefill chunks +
+             decode iterations), every logit finite, both makespans and the
+             idle share; then one decode step on copies of the final state
+             with the kernel and with the plain scan (cosine >= 0.99 per
+             row).
 8. mamba prefill — Model.prefill on a 1024-token prompt (one scan launch per
              layer) against the plain scan: each layer's mixer on the
              kernel path's own input (cosine >= 0.999 for outputs and
@@ -75,7 +85,17 @@ phase:
 9. mamba measure — the mamba context's prefill points (256 and 1024
              tokens, 1 request) and decode points (1 and 8 requests), each
              timed twice by cuda_events; (1024, 1) must exceed (256, 1).
-10. a JSON line listing every kernel with its launches on the main paths,
+10. granite serving — granite-20b at full width and depth (52 layers,
+             20.3 B parameters, no cut) serves the phase-4 requests through
+             the decode kernel at G = 48: launches equal layers x decode
+             iterations, every logit finite, one decode step kernel vs plain
+             (cosine >= 0.99 per row); its self_attn decode point at (8
+             requests, ctx 2048) is timed twice by cuda_events.
+11. tracer — the tainted runner traces llama3-8b and granite-20b at full
+             width on the meta device, then runs every op entry of their
+             runnable sets once on the card; no op may fall back to a module
+             entry where the smoke config's CPU runnable set has it as an op.
+12. a JSON line listing every kernel with its launches on the main paths,
    its largest error against its plain version, and its times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises and
@@ -87,6 +107,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -99,7 +120,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.opset import (ModuleEntry, OpEntry,  # noqa: E402
+                                    find_runnable_set)
+from repro_torch.core.runner import trace_model  # noqa: E402
 from repro_torch.core.backends import cpu_wallclock, cuda_events  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -110,6 +134,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.serving import (Engine, Request, SchedulerConfig,  # noqa: E402
                                  build_context)
+from repro_torch.serving.scheduler import IterationPlan  # noqa: E402
 from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
                                init_train_state, make_optimizer, make_train_step)
 
@@ -123,9 +148,11 @@ EXP_PER_CLOCK_SM = 16
 NOMINAL_SMS, NOMINAL_SM_HZ = 132, 1.98e9
 
 #: the cases of tests/test_kernels.py: (b, h, kv, smax, d, window) and
-#: (b, sq, sk, h, kv, d, causal, window)
+#: (b, sq, sk, h, kv, d, causal, window); the decode cases also at GQA groups
+#: of 48 (granite-20b's) and 40 (an uneven last slice of 32 rows)
 DECODE_CASES = [(2, 4, 2, 256, 64, 0), (3, 8, 1, 512, 64, 0),
-                (2, 4, 4, 256, 64, 64), (1, 8, 2, 128, 32, 0)]
+                (2, 4, 4, 256, 64, 64), (1, 8, 2, 128, 32, 0),
+                (2, 48, 1, 256, 64, 0), (3, 80, 2, 128, 32, 0)]
 FLASH_CASES = [(2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 8, 8, 32, True, 0),
                (2, 128, 128, 4, 1, 64, True, 48), (1, 100, 100, 2, 2, 64, False, 0),
                (1, 64, 192, 4, 2, 32, True, 0)]
@@ -148,6 +175,8 @@ PREFILL_POINT = (256, 1, 2048)                                 # (toks, reqs, ct
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
 TRAIN_STEPS, MICROBATCHES, LEARNING_RATE = 6, 2, 3e-4
 MAMBA = "falcon-mamba-7b"
+GRANITE = "granite-20b"
+GRANITE_POINT = (8, 2048)                                      # (reqs, ctx)
 MAMBA_PREFILL_POINTS = [(256, 1), (1024, 1)]                   # (toks, reqs)
 MAMBA_DECODE_REQS = (1, 8)
 
@@ -378,6 +407,8 @@ def _decode_case(rng, b, kv, g, smax, d, window, dtype, device, timed: bool,
             + keys * kv * 2 * d * esz
         res["bound_ms"], res["bound_by"] = _bound(nbytes, 2 * keys * kv * g * 2 * d,
                                                   dtype)
+        # a group above 32 rows runs in slices, each reading the keys again
+        res["reread_bytes"] = (da.group_slices(g) - 1) * keys * kv * 2 * d * esz
         res["ms"] = _time_ms(lambda: da.decode_attention(q, kc, vc, lengths,
                                                          window=window), device)
         res["device_ms"] = _device_ms(lambda: da.decode_attention(
@@ -473,9 +504,12 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
     return res
 
 
-def phase_kernels(cfg, device) -> dict:
+def phase_kernels(cfg, device, gqa_cfg=None) -> dict:
     """Each kernel against its plain version; returns, per kernel, the
-    largest error over all cases and the main path's times."""
+    largest error over all cases and the main path's times.  Decode attention
+    is also timed at ``gqa_cfg``'s serving shape (default granite-20b: a GQA
+    group of 48, run as two slices of the group)."""
+    gqa_cfg = gqa_cfg or get_config(GRANITE)
     rng = np.random.default_rng(0)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     g = cfg.n_heads // kv
@@ -507,9 +541,14 @@ def phase_kernels(cfg, device) -> dict:
     full = _decode_case(rng, 1, kv, g, MAX_SEQ, hd, 0, bf16, device, True,
                         full=True)
     errs["decode_attention"].append(full)
+    gg = gqa_cfg.n_heads // gqa_cfg.n_kv_heads
+    gqa = _decode_case(rng, b, gqa_cfg.n_kv_heads, gg, MAX_SEQ,
+                       gqa_cfg.resolved_head_dim, 0, bf16, device, True)
+    errs["decode_attention"].append(gqa)
     main["decode_attention"]["timed"] = {
         f"B={b} random lengths": dict(main["decode_attention"]),
-        f"B=1 full ctx {MAX_SEQ}": full}
+        f"B=1 full ctx {MAX_SEQ}": full,
+        f"{gqa_cfg.name} B={b} G={gg} random lengths": gqa}
     errs["flash_attention_fwd"].append(_flash_case(
         rng, 1, PREFILL_LEN, PREFILL_LEN, cfg.n_heads, kv, hd, True, WINDOW,
         bf16, device, False))
@@ -531,9 +570,12 @@ def phase_kernels(cfg, device) -> dict:
               f"library {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
               f"ms ({res['bound_by']}); {card}")
         for shape, r in res.get("timed", {}).items():
+            reread = (f"; slices re-read {r['reread_bytes'] / 2**20:.1f} MiB of "
+                      "K/V (from L2 when they run side by side)"
+                      if r.get("reread_bytes") else "")
             print(f"  {shape}: kernel {r['ms']:.4f} ms{_dev(r)}, plain "
                   f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){reread}")
     return main
 
 
@@ -612,13 +654,55 @@ def phase_scan(cfg, device) -> dict:
     return {"mamba_scan": main}
 
 
-def _serve(cfg, device) -> dict:
-    """The Engine serves the phase-4 requests through the kernel backend,
-    counts zeroed just before ``run`` and read just after."""
+def _requests(cfg):
+    """The phase-4 workload: 8 requests at t=0, prompts of 128-1024 tokens
+    (numpy seed 0), 32 new tokens each."""
     rng = np.random.default_rng(0)
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)
-    requests = [Request(i, 0.0, rng.integers(0, cfg.vocab_size, n).tolist(),
-                        NEW_TOKENS) for i, n in enumerate(lens)]
+    return lens, [Request(i, 0.0, rng.integers(0, cfg.vocab_size, n).tolist(),
+                          NEW_TOKENS) for i, n in enumerate(lens)]
+
+
+def _idle_share(engine, requests, device):
+    """The device's idle share over one steady decode iteration of all the
+    requests' rows: 1 - (union of the kernels' device intervals) / (the
+    iteration's time on the engine clock), from torch.profiler; also against
+    the same iteration's time without the profiler, which slows the
+    replay's launches, and the kernels that take most of the busy time.
+    Run after the workload; each iteration advances every row by one
+    token.  None off the card."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    plan = IterationPlan([], list(requests))
+    engine.execute(plan)
+    plain_wall = engine.execute(plan)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = engine.execute(plan)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _require(bool(kernels), "the profiler saw the decode iteration's kernels")
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    busy_s = busy * 1e-6
+    return {"wall_s": wall, "plain_wall_s": plain_wall, "busy_s": busy_s,
+            "kernels": len(kernels), "idle_share": 1.0 - busy_s / wall,
+            "idle_share_unprofiled": 1.0 - busy_s / plain_wall,
+            "top": [(name[:60], us * 1e-3) for name, us in top]}
+
+
+def _serve(cfg, device, runs: int = 2) -> dict:
+    """The Engine serves the phase-4 requests ``runs`` times through the
+    kernel backend (``Engine.reset`` between runs, keeping its graphs),
+    counts zeroed just before each ``run`` and read just after; then the
+    device's idle share over one decode iteration."""
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -628,28 +712,73 @@ def _serve(cfg, device) -> dict:
 
     def watch(step):
         def run(*a, **kw):
-            logits, cache = step(*a, **kw)
+            logits = step(*a, **kw)
             finite.append(bool(torch.isfinite(logits).all()))
-            return logits, cache
+            return logits
         return run
-    engine.model.prefill_chunk = watch(engine.model.prefill_chunk)
-    engine.model.decode_step = watch(engine.model.decode_step)
+    for name in ("_chunk_graph", "_chunk_eager", "_decode_graph", "_decode_eager"):
+        setattr(engine, name, watch(getattr(engine, name)))
 
-    _zero_counts()
-    t0 = time.perf_counter()
-    engine.run(requests)
-    wall = time.perf_counter() - t0
-    counts = _counts()
-    _require(all(finite), "every logit of the run is finite")
-    _require(all(r.done and r.generated == NEW_TOKENS for r in requests),
-             "every request finished with its new tokens")
-    return {"engine": engine, "requests": requests, "lens": lens, "wall": wall,
-            "counts": counts,
+    out = {"engine": engine, "runs": []}
+    for i in range(runs):
+        if i:
+            engine.reset()
+        lens, requests = _requests(cfg)
+        _zero_counts()
+        t0 = time.perf_counter()
+        engine.run(requests)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        _require(all(finite), "every logit of the run is finite")
+        _require(all(r.done and r.generated == NEW_TOKENS for r in requests),
+                 "every request finished with its new tokens")
+        out["runs"].append({
+            "makespan": engine.clock, "wall": wall, "counts": counts,
+            "iterations": len(engine.records),
             "decode_iters": sum(1 for r in engine.records if r.n_decodes),
             "ttft": [r.first_token_t - r.arrival for r in requests],
             "tpot": [(r.finish_t - r.first_token_t) / (r.generated - 1)
-                     for r in requests],
-            "peak": torch.cuda.max_memory_allocated(device) if cuda else 0}
+                     for r in requests]})
+    first = out["runs"][0]
+    _require(all((r["counts"], r["decode_iters"]) == (first["counts"],
+                                                       first["decode_iters"])
+                 for r in out["runs"]),
+             "every run launches the same kernels the same number of times")
+    out.update(requests=requests, lens=lens, counts=first["counts"],
+               decode_iters=first["decode_iters"],
+               peak=torch.cuda.max_memory_allocated(device) if cuda else 0,
+               graphs=len(engine.graphs))
+    out["idle"] = _idle_share(engine, requests, device)
+    return out
+
+
+def _print_runs(tag: str, run: dict, card: str):
+    """Each run's makespan, TTFT and TPOT, the makespans' ratio and the
+    idle share."""
+    spans = [r["makespan"] for r in run["runs"]]
+    print(f"  makespans {', '.join(f'{x:.4f}' for x in spans)} s (engine clock; "
+          f"ratio {max(spans) / min(spans):.4f}), {run['graphs']} CUDA graphs "
+          f"(captured outside the clock); {card}")
+    for i, r in enumerate(run["runs"]):
+        print(f"  run {i + 1}: ttft_s " + " ".join(f"{t:.4f}" for t in r["ttft"]))
+        print(f"  run {i + 1}: tpot_s " + " ".join(f"{t:.5f}" for t in r["tpot"]))
+    if run["idle"] is not None:
+        idle = run["idle"]
+        print(f"  {tag}: one decode iteration {idle['plain_wall_s'] * 1e3:.3f} ms "
+              f"({idle['wall_s'] * 1e3:.3f} ms under torch.profiler), kernels "
+              f"busy {idle['busy_s'] * 1e3:.3f} ms over {idle['kernels']} device "
+              f"activities: device idle share {idle['idle_share']:.4f} of the "
+              f"profiled iteration, {idle['idle_share_unprofiled']:.4f} of the "
+              f"unprofiled one; most busy: "
+              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in idle["top"]))
+
+
+def _run_summary(run: dict) -> dict:
+    return {"makespans_s": [r["makespan"] for r in run["runs"]],
+            "ttft_s": [r["ttft"] for r in run["runs"]],
+            "tpot_s": [r["tpot"] for r in run["runs"]],
+            "idle": run["idle"], "peak_bytes": run["peak"],
+            "decode_iterations": run["decode_iters"]}
 
 
 def phase_serving(cfg, device) -> dict:
@@ -665,15 +794,25 @@ def phase_serving(cfg, device) -> dict:
     _require(flash == flash_bwd == scan == 0,
              f"no flash- or scan-kernel launch while serving ({flash}, "
              f"{flash_bwd}, {scan})")
-    ttft, tpot, peak = run["ttft"], run["tpot"], run["peak"]
+    peak = run["peak"]
     print(f"[4 serving] {cfg.name}: {len(requests)} requests, prompts "
-          f"{sorted(run['lens'].tolist())}, {len(engine.records)} iterations "
-          f"({decode_iters} with decodes), makespan {engine.clock:.4f} s "
-          f"(wall {run['wall']:.2f} s), peak memory {peak / 2**30:.2f} GiB, "
-          f"decode-kernel launches {launches}")
-    print("  ttft_s " + " ".join(f"{t:.4f}" for t in ttft))
-    print("  tpot_s " + " ".join(f"{t:.5f}" for t in tpot))
+          f"{sorted(run['lens'].tolist())}, served {len(run['runs'])} times, "
+          f"{run['runs'][0]['iterations']} iterations ({decode_iters} with "
+          f"decodes), peak memory {peak / 2**30:.2f} GiB, decode-kernel launches "
+          f"{launches} a run")
+    _print_runs("4 serving", run, _card(device))
+    cos = _decode_vs_plain(engine, device)
+    print(f"  decode step on the final cache, kernel vs plain: min cosine "
+          f"{cos:.6f}")
+    out = {"decode_launches": launches, **_run_summary(run), "min_cosine": cos}
+    del engine, run
+    _release(device)
+    return out
 
+
+def _decode_vs_plain(engine, device) -> float:
+    """One decode step on the final cache with the kernel and with the plain
+    reference (cosine >= 0.99 in every row); returns the least cosine."""
     lengths = torch.tensor(engine.lengths, dtype=torch.int32, device=device)
     toks = [1] * SCHED.max_num_seqs
     lk, _ = engine.model.decode_step(engine.cache, toks, lengths, impl="kernel")
@@ -681,14 +820,7 @@ def phase_serving(cfg, device) -> dict:
     cos = F.cosine_similarity(lk, lx, dim=-1)
     _require(bool((cos >= 0.99).all()),
              f"decode logits kernel vs plain cosine >= 0.99 (min {float(cos.min()):.5f})")
-    print(f"  decode step on the final cache, kernel vs plain: min cosine "
-          f"{float(cos.min()):.6f}")
-    out = {"decode_launches": launches, "decode_iterations": decode_iters,
-           "makespan_s": engine.clock, "ttft_s": ttft, "tpot_s": tpot,
-           "peak_bytes": peak}
-    del engine, run
-    _release(device)
-    return out
+    return float(cos.min())
 
 
 def phase_prefill(cfg, device) -> dict:
@@ -794,28 +926,40 @@ def phase_train(cfg, device, *, seq: int = TRAIN_SEQ,
     return out
 
 
+def _decode_point(cfg, device, reqs: int, ctx: int, gen, oracle) -> list:
+    """One self_attn decode point through the oracle, timed twice, with
+    every row's cache full up to ``ctx``."""
+    cuda = device.type == "cuda"
+    mc = build_context(cfg, "self_attn", phase="decode", backend="kernel",
+                       device=device)
+    attn = mc.module(mc.materialize(mc.params, gen))
+    x, kc, vc, lengths = mc.materialize(mc.abstract_inputs(1, reqs, ctx), gen)
+    # materialize leaves integer inputs at 0, which would time an empty
+    # context; a full cache is what this point stands for
+    lengths.fill_(ctx - 1)
+    args = (attn, x, kc, vc, lengths)
+    return [oracle(mc.fn, args, device=device) if cuda else oracle(mc.fn, args)
+            for _ in range(2)]
+
+
 def phase_measure(cfg, device) -> dict:
     """Each decode point twice and one prefill point through the oracle:
     cuda_events (a CUDA graph's replay) on the card, cpu_wallclock here."""
     cuda = device.type == "cuda"
     oracle = cuda_events if cuda else cpu_wallclock
     gen = torch.Generator(device=device).manual_seed(0)
-    out = {}
-    for phase, points in (("decode", [(1, r, c) for r, c in MEASURE_POINTS]),
-                          ("prefill", [PREFILL_POINT])):
-        mc = build_context(cfg, "self_attn", phase=phase, backend="kernel",
-                           device=device)
-        attn = mc.module(mc.materialize(mc.params, gen))
-        for toks, reqs, ctx in points:
-            x, kc, vc, lengths = mc.materialize(mc.abstract_inputs(toks, reqs, ctx),
-                                                gen)
-            # materialize leaves integer inputs at 0, which would time an
-            # empty context; a full cache is what this point stands for
-            lengths.fill_(ctx - toks)
-            args = (attn, x, kc, vc, lengths)
-            out[(phase, toks, reqs, ctx)] = [oracle(mc.fn, args, device=device)
-                                             if cuda else oracle(mc.fn, args)
-                                             for _ in range(2)]
+    out = {("decode", 1, r, c): _decode_point(cfg, device, r, c, gen, oracle)
+           for r, c in MEASURE_POINTS}
+    mc = build_context(cfg, "self_attn", phase="prefill", backend="kernel",
+                       device=device)
+    attn = mc.module(mc.materialize(mc.params, gen))
+    toks, reqs, ctx = PREFILL_POINT
+    x, kc, vc, lengths = mc.materialize(mc.abstract_inputs(toks, reqs, ctx), gen)
+    lengths.fill_(ctx - toks)
+    args = (attn, x, kc, vc, lengths)
+    out[("prefill", toks, reqs, ctx)] = [
+        oracle(mc.fn, args, device=device) if cuda else oracle(mc.fn, args)
+        for _ in range(2)]
     low, high = out[("decode", 1, 1, 512)], out[("decode", 1, 8, 2048)]
     if cuda:
         _require(min(high) > max(low), f"decode point (8, 2048) {high} above "
@@ -826,6 +970,48 @@ def phase_measure(cfg, device) -> dict:
                       for (ph, t, r, c), xs in out.items())
           + f"; {_card(device)}")
     return out
+
+
+def phase_granite_serving(cfg, device) -> dict:
+    """granite-20b at full width and depth serves the phase-4 requests
+    through the decode kernel at a GQA group of 48: launches equal layers x
+    decode iterations, every logit finite, one decode step on the final
+    cache kernel vs plain (cosine >= 0.99 per row); then its self_attn
+    decode point at (8 requests, ctx 2048), timed twice."""
+    cuda = device.type == "cuda"
+    run = _serve(cfg, device, runs=1)
+    engine, requests, decode_iters = run["engine"], run["requests"], run["decode_iters"]
+    launches, flash, flash_bwd, scan = run["counts"]
+    expect = cfg.n_layers * decode_iters if cuda else 0
+    _require(launches == expect,
+             f"decode-kernel launches {launches} == {expect} (layers x decode iterations)")
+    _require(flash == flash_bwd == scan == 0,
+             f"no flash- or scan-kernel launch while serving ({flash}, "
+             f"{flash_bwd}, {scan})")
+    card = _card(device)
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    print(f"[10 granite serving] {cfg.name}, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}, GQA "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} (G = {cfg.n_heads // cfg.n_kv_heads}), "
+          f"no cut: {len(requests)} requests, {run['runs'][0]['iterations']} "
+          f"iterations ({decode_iters} with decodes), peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB, decode-kernel launches {launches}")
+    _print_runs("10 granite serving", run, card)
+    cos = _decode_vs_plain(engine, device)
+    print(f"  decode step on the final cache, kernel vs plain: min cosine "
+          f"{cos:.6f}")
+    summary = _run_summary(run)
+    del engine, run
+    _release(device)
+    oracle = cuda_events if cuda else cpu_wallclock
+    reqs, ctx = GRANITE_POINT
+    point = _decode_point(cfg, device, reqs, ctx,
+                          torch.Generator(device=device).manual_seed(0), oracle)
+    print(f"  self_attn decode point reqs={reqs} ctx={ctx}, {oracle.__name__}: "
+          + ", ".join(f"{x * 1e6:.1f}" for x in point) + f" us; {card}")
+    _release(device)
+    return {"decode_launches": launches, "min_cosine": cos, "n_params": n_params,
+            "point_s": point, **summary}
 
 
 def _cosine_rows(a, b) -> torch.Tensor:
@@ -846,17 +1032,16 @@ def phase_mamba_serving(cfg, device) -> dict:
              f"({chunks} prefill chunks + {decode_iters} decode iterations))")
     _require(decode == flash == flash_bwd == 0,
              f"no attention-kernel launch ({decode}, {flash}, {flash_bwd})")
-    ttft, tpot, peak = run["ttft"], run["tpot"], run["peak"]
+    peak = run["peak"]
+    card = _card(device)
     print(f"[7 mamba serving] {cfg.name}, {cfg.n_layers} layers, "
           f"{sum(p.numel() for p in engine.model.parameters()) / 1e9:.3f} B "
           f"parameters, {cfg.dtype}: {len(requests)} requests, prompts "
-          f"{sorted(run['lens'].tolist())}, {len(engine.records)} iterations "
-          f"({chunks} exact-length prefill chunks, {decode_iters} with "
-          f"decodes), makespan {engine.clock:.4f} s (wall {run['wall']:.2f} s), "
-          f"peak memory {peak / 2**30:.2f} GiB, scan launches {scan}; "
-          f"{_card(device)}")
-    print("  ttft_s " + " ".join(f"{t:.4f}" for t in ttft))
-    print("  tpot_s " + " ".join(f"{t:.5f}" for t in tpot))
+          f"{sorted(run['lens'].tolist())}, served {len(run['runs'])} times, "
+          f"{run['runs'][0]['iterations']} iterations ({chunks} exact-length "
+          f"prefill chunks, {decode_iters} with decodes), peak memory "
+          f"{peak / 2**30:.2f} GiB, scan launches {scan} a run; {card}")
+    _print_runs("7 mamba serving", run, card)
 
     # one more decode step on copies of the final state, kernel vs plain
     lengths = torch.tensor(engine.lengths, dtype=torch.int32, device=device)
@@ -871,9 +1056,7 @@ def phase_mamba_serving(cfg, device) -> dict:
              f"decode logits kernel vs plain cosine >= 0.99 (min {float(cos.min()):.5f})")
     print(f"  decode step on the final state, kernel vs plain: min cosine "
           f"{float(cos.min()):.6f}")
-    out = {"scan_launches": scan, "chunks": chunks,
-           "decode_iterations": decode_iters, "makespan_s": engine.clock,
-           "ttft_s": ttft, "tpot_s": tpot, "peak_bytes": peak,
+    out = {"scan_launches": scan, "chunks": chunks, **_run_summary(run),
            "min_cosine": float(cos.min())}
     del engine, run
     _release(device)
@@ -1017,13 +1200,59 @@ def phase_mamba_measure(cfg, device) -> dict:
     return out
 
 
-def kernels_line(kernels: dict, serving: dict, prefill: dict,
+def phase_tracer(pairs, device) -> dict:
+    """The tainted runner at full width: for each (cfg, smoke cfg), one
+    trace of the forward on the meta device, then ``find_runnable_set``
+    runs every op entry once on ``device``.  No op may fall back to its
+    module's entry where the smoke config's runnable set, resolved on the
+    CPU, has the same (module, op) as an op entry."""
+    out = {}
+    for cfg, smoke in pairs:
+        t0 = time.perf_counter()
+        mt = trace_model(cfg)
+        traced = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        entries = find_runnable_set(mt.trace, device=device)
+        resolved = time.perf_counter() - t0
+        ops = [e for e in entries if isinstance(e, OpEntry)]
+        modules = [e for e in entries if isinstance(e, ModuleEntry)]
+        cpu_ops = {(e.module, e.kind) for e in find_runnable_set(
+            trace_model(smoke).trace, device="cpu") if isinstance(e, OpEntry)}
+        fell_back = sorted({(e.module, op.name) for e in modules
+                            if e.context_kind is None for op in e.ops}
+                           & cpu_ops)
+        _require(not fell_back, f"{cfg.name}: op entries that ran on the CPU "
+                 f"fell back to module entries on {device}: {fell_back}")
+        linear = sum(1 for e in ops if e.kind in ("mm", "addmm", "bmm"))
+        kinds = {}
+        for e in ops:
+            kinds[e.kind] = kinds.get(e.kind, 0) + 1
+        print(f"[11 tracer] {cfg.name} at full width on the meta device: "
+              f"{len(mt.trace.ops)} aten ops traced in {traced:.2f} s (dummy "
+              f"prompt {mt.batch} x {mt.seq}, {mt.retraces} retraces); runnable "
+              f"set {len(entries)} entries, every op entry run once on "
+              f"{device.type} in {resolved:.2f} s: {len(ops)} op entries "
+              f"({linear} linear, {len(ops) - linear} other: "
+              + ", ".join(f"{k} {n}" for k, n in sorted(kinds.items()))
+              + "), module entries "
+              + ", ".join(f"{e.kind} x{e.count} at {e.module}" for e in modules))
+        out[cfg.name] = {"ops": len(mt.trace.ops), "retraces": mt.retraces,
+                         "trace_s": traced, "resolve_s": resolved,
+                         "op_entries": len(ops), "linear": linear,
+                         "modules": [(e.kind, e.count, e.module) for e in modules]}
+        del mt, entries, ops, modules
+        _release(device)
+    return out
+
+
+def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                  train: dict, mamba_serving: dict, mamba_prefill: dict) -> dict:
-    """Launches are counted on the main paths: decode while serving, the
-    flash forward over the prefill and the train steps, the backward over
-    the train steps, the scan while serving falcon-mamba and over its
-    prefill."""
-    launches = {"decode_attention": serving["decode_launches"],
+    """Launches are counted on the main paths: decode while serving llama3
+    (one run) and granite-20b, the flash forward over the prefill and the
+    train steps, the backward over the train steps, the scan while serving
+    falcon-mamba (one run) and over its prefill."""
+    launches = {"decode_attention": serving["decode_launches"]
+                + granite["decode_launches"],
                 "flash_attention_fwd": prefill["flash_launches"]
                 + train["flash_fwd_launches"],
                 "flash_attention_bwd": train["flash_bwd_launches"],
@@ -1066,8 +1295,12 @@ def main() -> int:
     mamba_serving = phase_mamba_serving(mcfg, device)
     mamba_prefill = phase_mamba_prefill(mcfg, device)
     phase_mamba_measure(mcfg, device)
-    print(f"[10] all phases passed in {time.perf_counter() - t0:.1f} s")
-    kernels_line(kernels, serving, prefill, train, mamba_serving, mamba_prefill)
+    granite = phase_granite_serving(get_config(GRANITE), device)
+    phase_tracer([(get_config(n), get_smoke_config(n)) for n in ("llama3-8b", GRANITE)],
+                 device)
+    print(f"[12] all phases passed in {time.perf_counter() - t0:.1f} s")
+    kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
+                 mamba_prefill)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

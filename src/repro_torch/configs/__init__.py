@@ -16,6 +16,10 @@ __all__ = ["SHAPES", "MLAConfig", "ModelConfig", "ShapeSpec",
 
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "command-r7b": "command_r7b",
+    "yi-9b": "yi_9b",
+    "starcoder2-15b": "starcoder2_15b",
+    "granite-20b": "granite_20b",
     "falcon-mamba-7b": "falcon_mamba_7b",
 }
 

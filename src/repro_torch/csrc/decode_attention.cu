@@ -16,7 +16,11 @@
 //
 // bf16 (tc::, split-KV on the tensor cores):
 //  - The keys of each (row, KV head) are split across `splits` blocks, a
-//    grid of (splits, KV, B).  The wrapper picks `splits` from the shapes
+//    grid of (splits, KV x slices, B), where a slice is up to kSlice = 32
+//    query rows of the GQA group (two m-tiles of 16): a group of any size
+//    runs as ceil(G / 32) slices, each with the registers of G <= 32, and
+//    each slice reads its (row, head)'s keys again, from L2 when the slices
+//    run side by side.  The wrapper picks `splits` from the shapes
 //    and the SM count alone (never from `lengths`, which stay on the card,
 //    so that the call can be captured in a CUDA graph); each block reads
 //    its row's length and takes an even share, in whole 16-key tiles, of
@@ -52,10 +56,11 @@
 //    there are no atomics, so two calls agree bit for bit.  With a single
 //    split the block writes the output itself.
 //
-// fp32 (simt::, unchanged): the tensor cores take no fp32 inputs at the
-// 2e-5 the fp32 checks hold, so fp32 keeps the CUDA-core kernel: one block
-// of 128 threads per (batch row, KV head), key tiles of 32 rows staged as
-// fp32 in shared memory, scores, softmax and P.V as scalar FMA loops.
+// fp32 (simt::): the tensor cores take no fp32 inputs at the 2e-5 the fp32
+// checks hold, so fp32 keeps the CUDA-core kernel: one block of 128 threads
+// per (batch row, KV head, slice of up to 32 query rows), key tiles of 32
+// rows staged as fp32 in shared memory, scores, softmax and P.V as scalar
+// FMA loops.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -67,16 +72,35 @@ constexpr int kThreads = 128;
 constexpr int kBlockK = 32;  // keys per tile: one per lane in the softmax step
 constexpr int kWarps = kThreads / 32;
 
+constexpr int kSlice = 32;  // query rows of the GQA group per block
+
+// Slices of the group: the grid's y index is kv_head * slices + slice.
+__host__ __device__ inline int group_slices(int group) {
+  return (group + kSlice - 1) / kSlice;
+}
+
+// What a block's grid y index stands for: its KV head, the first query row
+// of its slice within the group, and the slice's rows.
+struct Slice {
+  int kvh, g0, rows;
+};
+
+__device__ inline Slice slice_of(int y, int group) {
+  const int slices = group_slices(group);
+  const int g0 = (y % slices) * kSlice;
+  return {y / slices, g0, min(kSlice, group - g0)};
+}
+
 // Dynamic shared memory, in floats:
 //   ks [kBlockK][D + 1]  (the +1 keeps the score loop free of bank conflicts)
 //   vs [kBlockK][Dv]
-//   qs [G][D]            (pre-scaled queries)
-//   ps [G][kBlockK]      (scores, then probabilities)
-//   acc [G][Dv]
-//   m, l, corr [G] each
-inline size_t smem_floats(int group, int d, int dv) {
-  return static_cast<size_t>(kBlockK) * (d + 1) + kBlockK * dv + group * d +
-         group * kBlockK + group * dv + 3 * group;
+//   qs [R][D]            (pre-scaled queries; R = the slice's rows)
+//   ps [R][kBlockK]      (scores, then probabilities)
+//   acc [R][Dv]
+//   m, l, corr [R] each
+inline size_t smem_floats(int rows, int d, int dv) {
+  return static_cast<size_t>(kBlockK) * (d + 1) + kBlockK * dv + rows * d +
+         rows * kBlockK + rows * dv + 3 * rows;
 }
 
 template <typename T>
@@ -87,31 +111,32 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, int64_t o_sb, int64_t o_sh) {
   constexpr int kVec = vec_width<T>();
+  const Slice sl = slice_of(blockIdx.y, group);
+  const int b = blockIdx.x, kvh = sl.kvh, rows = sl.rows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int head0 = kvh * group + sl.g0;  // first query head of this slice
+
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + kBlockK * (d + 1);
   float* qs = vs + kBlockK * dv;
-  float* ps = qs + group * d;
-  float* acc = ps + group * kBlockK;
-  float* m_s = acc + group * dv;
-  float* l_s = m_s + group;
-  float* c_s = l_s + group;
-
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int head0 = kvh * group;  // first query head of this KV head's group
+  float* ps = qs + rows * d;
+  float* acc = ps + rows * kBlockK;
+  float* m_s = acc + rows * dv;
+  float* l_s = m_s + rows;
+  float* c_s = l_s + rows;
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
 
-  for (int i = tid * kVec; i < group * d; i += kThreads * kVec) {
+  for (int i = tid * kVec; i < rows * d; i += kThreads * kVec) {
     const int g = i / d, e = i % d;
     float tmp[kVec];
     load_vec(q + b * q_sb + (head0 + g) * q_sh + e, tmp);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) qs[i + j] = tmp[j] * scale;
   }
-  for (int i = tid; i < group * dv; i += kThreads) acc[i] = 0.f;
-  for (int g = tid; g < group; g += kThreads) {
+  for (int i = tid; i < rows * dv; i += kThreads) acc[i] = 0.f;
+  for (int g = tid; g < rows; g += kThreads) {
     m_s[g] = kNegInf;
     l_s[g] = 0.f;
   }
@@ -150,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     __syncthreads();
 
     // scores: one (query head, key) pair per thread and step
-    for (int i = tid; i < group * kBlockK; i += kThreads) {
+    for (int i = tid; i < rows * kBlockK; i += kThreads) {
       const int g = i / kBlockK, j = i % kBlockK;
       float s = kNegInf;
       if (j < n) {
@@ -164,7 +189,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     __syncthreads();
 
     // online softmax: one warp per query head, one key per lane
-    for (int g = warp; g < group; g += kWarps) {
+    for (int g = warp; g < rows; g += kWarps) {
       const float s = ps[g * kBlockK + lane];
       const float m_prev = m_s[g];
       const float m_new = fmaxf(m_prev, group_max(s));
@@ -181,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     __syncthreads();
 
     // acc = acc * corr + P . V; each thread owns fixed (g, e) entries
-    for (int i = tid; i < group * dv; i += kThreads) {
+    for (int i = tid; i < rows * dv; i += kThreads) {
       const int g = i / dv, e = i % dv;
       const float* pr = ps + g * kBlockK;
       float a = acc[i] * c_s[g];
@@ -191,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     __syncthreads();
   }
 
-  for (int i = tid; i < group * dv; i += kThreads) {
+  for (int i = tid; i < rows * dv; i += kThreads) {
     const int g = i / dv, e = i % dv;
     const float l = fmaxf(l_s[g], 1e-20f);
     store(out + b * o_sb + (head0 + g) * o_sh + e, acc[i] / l);
@@ -205,10 +230,11 @@ int launch(const void* q, const void* k, const void* v, const int32_t* lengths,
            int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
            int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_sh,
            cudaStream_t stream) {
-  const size_t smem = smem_floats(group, d, dv) * sizeof(float);
+  const size_t smem = smem_floats(group < kSlice ? group : kSlice, d, dv) * sizeof(float);
   cudaError_t err = allow_smem(decode_attention_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  decode_attention_kernel<T><<<dim3(batch, kv_heads), kThreads, smem, stream>>>(
+  decode_attention_kernel<T>
+      <<<dim3(batch, kv_heads * group_slices(group)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), group, d, dv,
       smax, window, scale, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
@@ -224,6 +250,9 @@ namespace repro_torch {
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using simt::group_slices;
+using simt::Slice;
+using simt::slice_of;
 using hopper::cp_async16;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
@@ -253,11 +282,14 @@ struct Smem {
   static constexpr int kBytes = kQ + 16 * MT * kRowK * 2;
 };
 
-// One block per (split, KV head, batch row).  `c` = scale * log2(e): m
+// One block per (split, KV head and slice of the group, batch row); the
+// slice's rows sit in 16 MT rows of registers.  The launch bounds ask for
+// one resident block, which leaves ptxas every register it may give a
+// thread: without it, the D = 64, Dv = 32 variant spilled at 96 registers.  `c` = scale * log2(e): m
 // holds max(S) * c and P = 2^(S c - m).  `part` holds, per (row, head,
 // split, g), DV unnormalised accumulators, then after all of them (m, l).
 template <int D, int DV, int MT>
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(
+__global__ void __launch_bounds__(kThreads, 1) decode_split_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int32_t* __restrict__ lengths,
     bf16* __restrict__ out, float* __restrict__ part, int group, int smax,
@@ -268,8 +300,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   extern __shared__ __align__(16) uint8_t decode_smem[];
   uint8_t* smem = decode_smem;
   bf16* qs = reinterpret_cast<bf16*>(smem + S::kQ);
-  const int split = blockIdx.x, splits = gridDim.x;
-  const int kvh = blockIdx.y, kv_heads = gridDim.y, b = blockIdx.z;
+  const int split = blockIdx.x, splits = gridDim.x, b = blockIdx.z;
+  const int kvh = slice_of(blockIdx.y, group).kvh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int quad = lane % 4, mi = lane / 8, mr = lane % 8;
 
@@ -284,12 +316,15 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
   const int tiles = end > start ? (end - start + kKeys - 1) / kKeys : 0;
   const int mine = tiles > warp ? (tiles - 1 - warp) / kWarps + 1 : 0;
 
-  // the query group, rows past G zero
-  for (int i = threadIdx.x; i < 16 * MT * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), ch = i % (D / 8);
-    const bool live = r < group;
-    cp_async16(qs + r * S::kRowK + 8 * ch,
-               q + b * q_sb + (kvh * group + (live ? r : 0)) * q_sh + 8 * ch, live);
+  {  // the slice's query rows, rows past it zero
+    const Slice sl = slice_of(blockIdx.y, group);
+    const bf16* qb = q + b * q_sb + (kvh * group + sl.g0) * q_sh;
+    for (int i = threadIdx.x; i < 16 * MT * (D / 8); i += kThreads) {
+      const int r = i / (D / 8), ch = i % (D / 8);
+      const bool live = r < sl.rows;
+      cp_async16(qs + r * S::kRowK + 8 * ch, qb + (live ? r : 0) * q_sh + 8 * ch,
+                 live);
+    }
   }
   cp_async_commit();
 
@@ -444,26 +479,31 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(
       }
     }
   __syncthreads();
-  const float* rows = reinterpret_cast<const float*>(smem);
+  const float* warp_rows = reinterpret_cast<const float*>(smem);
+  // the slice again (recomputed here rather than held through the loop)
+  const Slice sl = slice_of(blockIdx.y, group);
+  const int rows = sl.rows, g0 = sl.g0, head0 = kvh * group + g0;
+  const int kv_heads = gridDim.y / group_slices(group);
   const int64_t n_acc = int64_t(gridDim.z) * kv_heads * splits * group * DV;
-  for (int i = threadIdx.x; i < group * DV; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * DV; i += kThreads) {
     const int g = i / DV, e = i % DV;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      mx = fmaxf(mx, rows[(w * 16 * MT + g) * S::kMergeRow + DV]);
+      mx = fmaxf(mx, warp_rows[(w * 16 * MT + g) * S::kMergeRow + DV]);
     float sum = 0.f, acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float* row = rows + (w * 16 * MT + g) * S::kMergeRow;
+      const float* row = warp_rows + (w * 16 * MT + g) * S::kMergeRow;
       const float f = exp2f(row[DV] - mx);
       sum = fmaf(row[DV + 1], f, sum);
       acc = fmaf(row[e], f, acc);
     }
     if (splits == 1) {
-      store(out + b * o_sb + (kvh * group + g) * o_sh + e, acc / fmaxf(sum, 1e-20f));
+      store(out + b * o_sb + (head0 + g) * o_sh + e, acc / fmaxf(sum, 1e-20f));
     } else {
-      const int64_t slot = ((int64_t(b) * kv_heads + kvh) * splits + split) * group + g;
+      const int64_t slot =
+          ((int64_t(b) * kv_heads + kvh) * splits + split) * group + g0 + g;
       part[slot * DV + e] = acc;
       if (e == 0) {
         part[n_acc + 2 * slot] = mx;
@@ -510,7 +550,8 @@ int launch(const void* q, const void* k, const void* v, const int32_t* lengths,
   cudaError_t err = allow_smem(decode_split_kernel<D, DV, MT>, kBytes);
   if (err != cudaSuccess) return err;
   decode_split_kernel<D, DV, MT>
-      <<<dim3(splits, kv_heads, batch), kThreads, kBytes, stream>>>(
+      <<<dim3(splits, kv_heads * group_slices(group), batch), kThreads, kBytes,
+         stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), lengths, static_cast<bf16*>(out), part,
           group, smax, window, scale * kLog2e, st[0], st[1], st[2], st[3], st[4],
@@ -528,13 +569,12 @@ int dispatch_mt(const void* q, const void* k, const void* v, const int32_t* leng
                 void* out, float* part, int batch, int kv_heads, int group,
                 int smax, int window, int splits, float scale, const int64_t* st,
                 cudaStream_t stream) {
+  // a group above kSlice runs as slices of up to 32 rows: two m-tiles
   if (group <= 16)
     return launch<D, DV, 1>(q, k, v, lengths, out, part, batch, kv_heads, group,
                             smax, window, splits, scale, st, stream);
-  if (group <= 32)
-    return launch<D, DV, 2>(q, k, v, lengths, out, part, batch, kv_heads, group,
-                            smax, window, splits, scale, st, stream);
-  return cudaErrorInvalidValue;
+  return launch<D, DV, 2>(q, k, v, lengths, out, part, batch, kv_heads, group,
+                          smax, window, splits, scale, st, stream);
 }
 
 template <int D>
@@ -584,10 +624,11 @@ int dispatch(const void* q, const void* k, const void* v, const int32_t* lengths
 // caches (B, Smax, KV, D[v]) through their strides; out (B, KV, G, Dv)
 // likewise to q.  Every last dimension is contiguous.  `strides` holds 10
 // values: q (batch, head), k and v (batch, seq, head) each, out (batch,
-// head).  `splits` blocks share each (row, KV head)'s keys, and `part`
-// holds their partial softmaxes, B * KV * splits * G * (Dv + 2) floats
-// (unused with one split, and by the fp32 kernel, which runs one block per
-// (row, KV head)).  Each entry returns its launch's cudaError_t.
+// head).  Any G: the group runs in slices of up to 32 query rows.
+// `splits` blocks share each (row, KV head, slice)'s keys, and `part` holds
+// their partial softmaxes, B * KV * splits * G * (Dv + 2) floats (unused
+// with one split, and by the fp32 kernel, which runs one block per (row, KV
+// head, slice)).  Each entry returns its launch's cudaError_t.
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const int32_t* lengths, void* out, float* part,
                                     int batch, int kv_heads, int group, int d,

@@ -12,7 +12,10 @@ raises.  On the card the dtype picks the kernel: bfloat16 splits each (row,
 KV head)'s keys over ``num_splits`` blocks on the tensor cores and merges
 their partial softmaxes in a second launch (``decode_attention_bf16``);
 float32 runs one CUDA-core block per (row, KV head) (``*_f32``), since the
-tensor cores cannot meet the fp32 tolerance.  ``decode_attention.launches``
+tensor cores cannot meet the fp32 tolerance.  Both take a GQA group of any
+size, as the reference's kernel does: it runs in slices of at most
+GROUP_SLICE query rows, one grid index each, so a block holds no more rows
+of registers than a group of 32 would.  ``decode_attention.launches``
 counts calls that launched the kernel.
 """
 from __future__ import annotations
@@ -26,7 +29,9 @@ from repro_torch.core.device import sm_count
 from repro_torch.kernels import _build
 
 SUPPORTED_DIMS = (32, 64, 128)
-MAX_GROUP = 32
+#: query rows of the GQA group that one block computes (two 16-row m-tiles
+#: of the bf16 kernel); a larger group runs as several slices
+GROUP_SLICE = 32
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
@@ -37,13 +42,21 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float]
 SPLIT_BLOCKS_PER_SM, KEYS_PER_SPLIT = 2, 128
 
 
-def num_splits(batch: int, kv_heads: int, smax: int, sms: int) -> int:
-    """Blocks that share the keys of one (row, KV head) in the bf16 kernel:
-    enough for about SPLIT_BLOCKS_PER_SM blocks per SM, no more than a cache
-    of ``smax`` keys fills with KEYS_PER_SPLIT each.  A function of the
-    shapes and the card only, never of the lengths, so that a call can be
-    captured in a CUDA graph and two calls split alike."""
-    want = -(-SPLIT_BLOCKS_PER_SM * sms // (batch * kv_heads))
+def group_slices(group: int) -> int:
+    """Blocks that share the query rows of one (row, KV head)."""
+    return -(-group // GROUP_SLICE)
+
+
+def num_splits(batch: int, kv_heads: int, smax: int, sms: int,
+               group: int = 1) -> int:
+    """Blocks that share the keys of one (row, KV head, slice of the group)
+    in the bf16 kernel: enough for about SPLIT_BLOCKS_PER_SM blocks per SM
+    over all slices, no more than a cache of ``smax`` keys fills with
+    KEYS_PER_SPLIT each.  A function of the shapes and the card only, never
+    of the lengths, so that a call can be captured in a CUDA graph and two
+    calls split alike."""
+    blocks = batch * kv_heads * group_slices(group)
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // blocks)
     return max(1, min(want, -(-smax // KEYS_PER_SPLIT)))
 
 
@@ -88,8 +101,6 @@ def _check(q, k_cache, v_cache, lengths):
     if d not in SUPPORTED_DIMS or v_cache.shape[3] not in SUPPORTED_DIMS:
         raise ValueError(f"decode_attention: head dims {d}/{v_cache.shape[3]} "
                          f"not in {SUPPORTED_DIMS}")
-    if g > MAX_GROUP:
-        raise ValueError(f"decode_attention: GQA group {g} > {MAX_GROUP}")
     if q.stride(1) != g * q.stride(2):
         raise ValueError("decode_attention: q's KV and group dims must merge "
                          "into one head dim")
@@ -113,7 +124,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     out = torch.empty((b, kv, g, dv), dtype=q.dtype, device=q.device)
     splits, part = 1, None
     if q.dtype == torch.bfloat16:
-        splits = num_splits(b, kv, smax, sm_count(q.device))
+        splits = num_splits(b, kv, smax, sm_count(q.device), g)
     if splits > 1:          # each split's unnormalised acc, then (m, l)
         part = torch.empty(b * kv * splits * g * (dv + 2), dtype=torch.float32,
                            device=q.device)

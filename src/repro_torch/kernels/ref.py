@@ -200,7 +200,7 @@ def chunk_cache_attention_impl(impl: str):
     """The chunk-against-cache attention each backend runs.  Like the
     reference, the kernel backend uses the materialized version here: the
     flash kernel serves full-sequence prefill only."""
-    if impl == "chunked_naive":
+    if impl in ("chunked", "chunked_naive"):
         return chunk_cache_attention_chunked
     return chunk_cache_attention
 

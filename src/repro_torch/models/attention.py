@@ -5,12 +5,17 @@ configuration axis 'S'):
 
 * ``xla``           — full materialized softmax attention (``ref.attention``),
                       the "eager" backend; the name is the reference's.
+* ``chunked``       — flash semantics in plain torch
+                      (``kernels/flash_xla.py``): online softmax over KV
+                      chunks that saves only (out, lse) and recomputes the
+                      probabilities in the backward; ``auto`` picks it above
+                      ``_XLA_MAX_SEQ`` tokens, as the reference does.
 * ``chunked_naive`` — online softmax over KV chunks (``ref.chunked_attention``).
 * ``kernel``        — the hand-written CUDA kernels (``kernels/ops.py``); on
                       CPU tensors their plain versions.
 
-The reference's ``chunked`` backend (``kernels/flash_xla.py``) is not ported
-yet, so ``auto`` above ``_XLA_MAX_SEQ`` tokens raises instead of choosing it.
+Both chunked backends also select the split-KV decode and the
+online-softmax chunk-against-cache attention, as the reference's do.
 
 Decode uses a padded KV cache with per-request lengths; sliding-window
 layers may use a ring-buffer cache of exactly ``window`` slots.  Caches are
@@ -28,11 +33,12 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_xla import flash_attention_xla
 from repro_torch.models.layers import Linear, apply_rope
 
 #: the port's backend names -> the reference's
-REFERENCE_IMPL = {"xla": "xla", "chunked_naive": "chunked_naive",
-                  "kernel": "pallas"}
+REFERENCE_IMPL = {"xla": "xla", "chunked": "chunked",
+                  "chunked_naive": "chunked_naive", "kernel": "pallas"}
 
 _XLA_MAX_SEQ = 2048          # above this the materialized S^2 logits are insane
 
@@ -71,15 +77,12 @@ def _sdpa(q, k, v, *, causal, window, impl, q_offset=0):
     """q (B,Sq,H,D) k,v (B,Sk,KV,D) -> (B,Sq,H,D)."""
     sq, sk = q.shape[1], k.shape[1]
     if impl == "auto":
-        if max(sq, sk) > _XLA_MAX_SEQ:
-            raise NotImplementedError(
-                f"auto backend at {max(sq, sk)} > {_XLA_MAX_SEQ} tokens picks "
-                "'chunked' (flash_xla), which is not ported yet; pass "
-                "impl='kernel' or 'chunked_naive'")
-        impl = "xla"
+        impl = "xla" if max(sq, sk) <= _XLA_MAX_SEQ else "chunked"
     if impl == "xla":
         return ref.attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
+    if impl == "chunked":
+        return flash_attention_xla(q, k, v, causal, window, q_offset)
     if impl == "chunked_naive":
         return ref.chunked_attention(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
@@ -149,7 +152,7 @@ def decode_attention(attn: Attention, x: torch.Tensor,
                                n_shards=kv_seq_shards)
     elif impl == "kernel":
         out = kops.decode_attention(q, k_cache, v_cache, eff_len)
-    elif impl == "chunked_naive" and window == 0:
+    elif impl in ("chunked", "chunked_naive") and window == 0:
         # split-KV style decode (distinct kernel selection, as the reference)
         n = max(slots // 512, 1)
         while slots % n:

@@ -24,7 +24,7 @@ from repro_torch.kernels import ref
 from repro_torch.models.layers import Linear, _normal
 
 SCAN_CHUNK = 512
-_PLAIN_IMPLS = ("auto", "xla", "chunked_naive")
+_PLAIN_IMPLS = ("auto", "xla", "chunked", "chunked_naive")
 
 State = Dict[str, torch.Tensor]
 
@@ -33,11 +33,14 @@ class Mamba(nn.Module):
     """The weights of one mixer, named and shaped as the reference's
     ``mamba_spec``: ``in_proj``, ``conv_w`` (kw, Di), ``conv_b``, ``x_proj``,
     ``dt_w`` (dt_rank, Di), ``dt_b``, ``A_log`` (Di, N), ``D``, ``out_proj``;
-    ``dt_b``, ``A_log`` and ``D`` are float32, the rest the model dtype."""
+    ``dt_b``, ``A_log`` and ``D`` are float32, the rest the model dtype.
+    Calling the module runs ``mamba_mixer``, so that its ops run in the
+    module's own scope (``layers.{i}.mamba``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.cfg = cfg
         d, di, st = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state
         dtr, kw = cfg.resolved_dt_rank, cfg.ssm_conv
         lin = dict(device=device, dtype=dtype, generator=generator)
@@ -52,6 +55,10 @@ class Mamba(nn.Module):
         self.A_log = nn.Parameter(torch.zeros(di, st, **f32))
         self.D = nn.Parameter(torch.ones(di, **f32))
         self.out_proj = Linear(di, d, **lin)
+
+    def forward(self, x: torch.Tensor, **kw):
+        """``mamba_mixer(self, x, cfg, **kw)``."""
+        return mamba_mixer(self, x, self.cfg, **kw)
 
 
 def _ssm_params(m: Mamba, u: torch.Tensor, cfg: ModelConfig):

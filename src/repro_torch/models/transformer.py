@@ -83,10 +83,8 @@ def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
     h = block.ln1(x)
     if desc.kind == "mamba":
         if not collect_cache:
-            return x + mamba_mod.mamba_mixer(block.mamba, h, block.cfg,
-                                             impl=impl), None
-        y, (tail, hs) = mamba_mod.mamba_mixer(block.mamba, h, block.cfg,
-                                              return_state=True, impl=impl)
+            return x + block.mamba(h, impl=impl), None
+        y, (tail, hs) = block.mamba(h, return_state=True, impl=impl)
         return x + y, {"conv": tail, "h": hs}
     y = block.self_attn(h, positions, causal=causal, window=desc.window,
                         impl=impl)
@@ -175,9 +173,9 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
     updated in place.  A Mamba block continues from the cache's conv tail
     and SSM state and writes the chunk's into it."""
     if block.desc.kind == "mamba":
-        y, (tail, hs) = mamba_mod.mamba_mixer(
-            block.mamba, block.ln1(x), block.cfg, h0=cache["h"],
-            conv_tail=cache["conv"], return_state=True, impl=impl)
+        y, (tail, hs) = block.mamba(block.ln1(x), h0=cache["h"],
+                                    conv_tail=cache["conv"], return_state=True,
+                                    impl=impl)
         cache["conv"].copy_(tail)
         cache["h"].copy_(hs)
         return x + y

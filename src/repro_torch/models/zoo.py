@@ -31,6 +31,15 @@ from repro_torch.models.layers import Embedding, Linear, RMSNorm
 Cache = List[Dict[str, torch.Tensor]]
 
 
+class TiedHead(nn.Module):
+    """The output projection of a model with tied embeddings: logits from the
+    embedding table, as ``lm_head`` so that the head's product runs in the
+    ``lm_head`` scope as the reference's does.  It holds no weights."""
+
+    def forward(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        return x @ table.T
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: Device = "cuda",
                  dtype: Optional[torch.dtype] = None,
@@ -51,8 +60,8 @@ class Model(nn.Module):
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, **kw)
         self.layers = nn.ModuleList(tfm.Block(cfg, d, **kw) for d in self.descs)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=dev)
-        if not cfg.tie_embeddings:
-            self.lm_head = Linear(cfg.d_model, cfg.vocab_size, **kw)
+        self.lm_head = (TiedHead() if cfg.tie_embeddings
+                        else Linear(cfg.d_model, cfg.vocab_size, **kw))
 
     @property
     def device(self) -> torch.device:
@@ -65,7 +74,7 @@ class Model(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
         if self.cfg.tie_embeddings:
-            logits = x @ self.embed.table.T
+            logits = self.lm_head(x, self.embed.table)
         else:
             logits = self.lm_head(x)
         return logits.float()

@@ -232,7 +232,7 @@ def test_mamba_step_matches_jax(pair, impl):
 def test_mamba_rejects_an_unknown_backend(pair):
     _, m, cfg, _ = _layer0(pair)
     with pytest.raises(ValueError, match="unknown mamba impl"):
-        mamba.mamba_mixer(m, torch.zeros(1, 4, cfg.d_model), cfg, impl="chunked")
+        mamba.mamba_mixer(m, torch.zeros(1, 4, cfg.d_model), cfg, impl="pallas")
 
 
 def test_init_mamba_state_matches_the_reference_spec(pair):
@@ -503,8 +503,9 @@ def _chip_smoke():
 def test_chip_smoke_mamba_serving_counts_scan_launches(monkeypatch, capsys):
     """The mamba serving phase at falcon-mamba-smoke, with the plain scan
     counted as the kernel would be: after the warm-up, one call per layer
-    for each exact-length chunk and each decode iteration, and one per
-    layer for the kernel's decode step on the final state."""
+    for each exact-length chunk and each decode iteration of each of the
+    phase's runs, and one per layer for the kernel's decode step on the
+    final state."""
     cs = _chip_smoke()
     calls = []
     plain = cs.ms.mamba_scan_plain
@@ -515,8 +516,10 @@ def test_chip_smoke_mamba_serving_counts_scan_launches(monkeypatch, capsys):
     buckets = len([b for b in (8, 16, 32, 64, 128, 256)
                    if b <= cs.SCHED.chunk_size])
     warmup = cfg.n_layers * (1 + buckets)
+    runs = len(out["makespans_s"])
+    assert runs == 2
     assert len(calls) == warmup + cfg.n_layers * (
-        out["chunks"] + out["decode_iterations"] + 1)
+        runs * (out["chunks"] + out["decode_iterations"]) + 1)
     assert out["chunks"] > 0 and out["min_cosine"] > 0.999
     assert "[7 mamba serving]" in capsys.readouterr().out
 

@@ -231,8 +231,8 @@ def _chip_smoke():
 def test_chip_smoke_phases_on_cpu(capsys):
     cs = _chip_smoke()
     cfg, cpu = get_smoke_config("llama3-8b"), torch.device("cpu")
-    mcfg = get_smoke_config(cs.MAMBA)
-    kernels = cs.phase_kernels(cfg, cpu)
+    mcfg, gcfg = get_smoke_config(cs.MAMBA), get_smoke_config(cs.GRANITE)
+    kernels = cs.phase_kernels(cfg, cpu, gcfg)
     kernels.update(cs.phase_scan(mcfg, cpu))
     serving = cs.phase_serving(cfg, cpu)
     prefill = cs.phase_prefill(cfg, cpu)
@@ -241,8 +241,10 @@ def test_chip_smoke_phases_on_cpu(capsys):
     mamba_serving = cs.phase_mamba_serving(mcfg, cpu)
     mamba_prefill = cs.phase_mamba_prefill(mcfg, cpu)
     mamba_measured = cs.phase_mamba_measure(mcfg, cpu)
-    line = cs.kernels_line(kernels, serving, prefill, train, mamba_serving,
-                           mamba_prefill)
+    granite = cs.phase_granite_serving(gcfg, cpu)
+    traced = cs.phase_tracer([(cfg, cfg), (gcfg, gcfg)], cpu)
+    line = cs.kernels_line(kernels, serving, granite, prefill, train,
+                           mamba_serving, mamba_prefill)
     assert [k["name"] for k in line["kernels"]] == [
         "decode_attention", "flash_attention_fwd", "flash_attention_bwd",
         "mamba_scan"]
@@ -259,7 +261,17 @@ def test_chip_smoke_phases_on_cpu(capsys):
         path, line_no = k["replaces"].split(":")
         assert "pallas_call" in "".join(
             (ROOT / path).read_text().splitlines()[int(line_no) - 1:int(line_no) + 40])
-    assert serving["decode_iterations"] > 0 and len(serving["ttft_s"]) == 8
+    assert serving["decode_iterations"] > 0 and len(serving["ttft_s"]) == 2
+    assert all(len(t) == 8 for t in serving["ttft_s"] + serving["tpot_s"])
+    assert len(serving["makespans_s"]) == 2 and serving["idle"] is None
+    assert len(mamba_serving["makespans_s"]) == 2
+    assert granite["decode_iterations"] > 0 and len(granite["point_s"]) == 2
+    assert granite["min_cosine"] > 0.999
+    assert sorted(traced) == ["granite-smoke", "llama3-smoke"]
+    # up, gate and down projections and the head; gelu has no gate
+    assert [traced[n]["linear"] for n in ("llama3-smoke", "granite-smoke")] == [4, 3]
+    assert all(t["modules"] == [("self_attn", 3, "layers.0/self_attn")]
+               for t in traced.values())
     assert len(train["losses"]) == cs.TRAIN_STEPS and train["min_cosine"] > 0.999
     assert set(measured) == {("decode", 1, r, c) for r, c in cs.MEASURE_POINTS} \
         | {("prefill",) + cs.PREFILL_POINT}
@@ -269,8 +281,9 @@ def test_chip_smoke_phases_on_cpu(capsys):
         "bytes", "operations", "exp")
     assert sorted(scan["timed"]) == ["decode B=8 S=1", "prefill B=1 S=1024",
                                      "prefill B=1 S=256"]
-    assert sorted(line["kernels"][0]["timed"]) == ["B=1 full ctx 2048",
-                                                   "B=8 random lengths"]
+    assert sorted(line["kernels"][0]["timed"]) == [
+        "B=1 full ctx 2048", "B=8 random lengths",
+        "granite-smoke B=8 G=4 random lengths"]
     assert mamba_serving["chunks"] > 0 and mamba_serving["min_cosine"] > 0.999
     assert min(mamba_prefill[k] for k in (
         "cosine", "h_cosine", "layer_cosine", "layer_h_cosine", "fp32_cosine",
@@ -281,6 +294,8 @@ def test_chip_smoke_phases_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "[4 serving]" in out and "[5b train]" in out and "8 of 3 layers" in out
     assert "[3b kernels] mamba_scan" in out and "[8 mamba prefill]" in out
+    assert "[10 granite serving]" in out and "makespans" in out
+    assert "[11 tracer]" in out
 
 
 def test_chip_smoke_train_counts_remat_launches(monkeypatch):
