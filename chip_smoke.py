@@ -95,8 +95,24 @@ them, one line per phase:
              width on the meta device, then runs every op entry of their
              runnable sets once on the card; no op may fall back to a module
              entry where the smoke config's CPU runnable set has it as an op.
-12. a JSON line listing every kernel with its launches on the main paths,
-   its largest error against its plain version, and its times.
+12. profile->simulate — Dooly's loop on llama3-8b and command-r7b at full
+             width, in a fresh process (its fingerprints come before any
+             cuda_events timing there): a plan over both models with a sweep
+             that brackets every point the engine asks for (prefill chunks
+             of 8-256 tokens against ctx 2048, the decode batch of 8 at ctx
+             2048), its coverage table, then its execution by cuda_events:
+             the dry run's point count must equal the rows written, the
+             GQA 32/8/128 global self_attn task must be measured once and
+             shared by both models, no fingerprint may fall back, and the
+             profiling GPU-seconds spent and saved are printed.  DoolySim is
+             calibrated on one engine run (4 requests of 512 tokens), then
+             a ShareGPT-like trace of 32 requests (seed 4) is served twice
+             on the engine (its self-noise) and predicted by DoolySim:
+             TTFT, TPOT and makespan MAPE, beside the roofline backend's
+             makespan.  It fails on a MAPE that is not finite, a DB point
+             missing, or a makespan MAPE above 25 %.
+A JSON line then lists every kernel with its launches on the main paths,
+its largest error against its plain version, and its times.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises and
 the script exits non-zero; without a CUDA device it exits 1 at once.  Each
@@ -120,7 +136,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.api import ProfileStore  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.profiler import SweepConfig  # noqa: E402
+from repro_torch.core.signature import fingerprint  # noqa: E402
+from repro_torch.parallel.roofline import default_hardware  # noqa: E402
 from repro_torch.core.opset import (ModuleEntry, OpEntry,  # noqa: E402
                                     find_runnable_set)
 from repro_torch.core.runner import trace_model  # noqa: E402
@@ -133,10 +153,12 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.serving import (Engine, Request, SchedulerConfig,  # noqa: E402
-                                 build_context)
+                                 bucket_chunk, build_context)
 from repro_torch.serving.scheduler import IterationPlan  # noqa: E402
+from repro_torch.sim import metrics as M  # noqa: E402
 from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
                                init_train_state, make_optimizer, make_train_step)
+from repro_torch.workload import sharegpt_like, synthetic  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -179,6 +201,22 @@ GRANITE = "granite-20b"
 GRANITE_POINT = (8, 2048)                                      # (reqs, ctx)
 MAMBA_PREFILL_POINTS = [(256, 1), (1024, 1)]                   # (toks, reqs)
 MAMBA_DECODE_REQS = (1, 8)
+#: phase 12: the sweep brackets every point the engine asks for (chunk
+#: buckets 8-256 at one request against the full 2048-slot cache, the decode
+#: batch of 8 rows at ctx 2048); 20 repeats, as cuda_events replays each
+#: point 20 times
+PROFILE_MODELS = ("llama3-8b", "command-r7b")
+PROFILE_SWEEP = SweepConfig(toks=(8, 16, 32, 64, 128, 256), reqs=(1, 8),
+                            ctx=(512, 2048),
+                            op_points=((8, 1), (16, 1), (32, 1), (64, 1),
+                                       (128, 1), (256, 1), (1, 8)),
+                            repeats=20)
+PROFILE_BACKEND = "kernel"
+CALIBRATION = dict(n=4, rate=1.0, prompt_len=512, out_len=32, seed=9)
+SCORE = dict(n=32, rate=4.0, seed=4, scale=0.25)
+SHARED_VARIANT = "32/8/128"          # the GQA geometry llama3 shares
+MAKESPAN_MAPE_LIMIT = 25.0
+PAPER_MAPE = {"ttft_mape": 5.0, "tpot_mape": 8.0}
 
 #: the libraries whose bf16 path runs on the tensor cores, and the SASS
 #: instructions of which one must appear: wgmma (HGMMA), or mma.sync (HMMA)
@@ -1245,16 +1283,229 @@ def phase_tracer(pairs, device) -> dict:
     return out
 
 
+def _mapes(cmp: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in cmp.items())
+
+
+def _card_state(device) -> str:
+    """The card's SM clock, power draw and temperature, as nvidia-smi reads
+    them now."""
+    if device.type != "cuda":
+        return "no card"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def _decode_ms(records) -> float:
+    """Median ms of a run's decode-only iterations."""
+    return float(np.median([r.model_s for r in records if not r.n_chunks])) * 1e3
+
+
+def _iteration_errors(sim, records) -> dict:
+    """The engine's iterations against DoolySim's price of each, by kind
+    (decode only, chunks only, chunks with decodes) and, for chunk-only
+    iterations of one chunk, by bucket: count, median measured and
+    predicted ms, MAPE and mean signed error (%)."""
+    groups = {}
+    for r in records:
+        kind = ("decode" if not r.n_chunks else
+                "chunks" if not r.n_decodes else "mixed")
+        pred = (sim.overhead_s + sim.chunk_overhead_s * r.n_chunks
+                + sim.predict_record(r))
+        groups.setdefault(kind, []).append((r.model_s, pred))
+        if kind == "chunks" and r.n_chunks == 1:
+            groups.setdefault(f"chunk {bucket_chunk(r.chunks[0][0], SCHED.chunk_size)}",
+                              []).append((r.model_s, pred))
+    out = {}
+    for kind, pairs in groups.items():
+        real, pred = np.array(pairs).T
+        err = (pred - real) / real * 100.0
+        out[kind] = {"n": len(pairs), "ms": float(np.median(real)) * 1e3,
+                     "pred_ms": float(np.median(pred)) * 1e3,
+                     "mape": float(np.abs(err).mean()), "bias": float(err.mean())}
+    return out
+
+
+def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
+                           sweep: SweepConfig, sched: SchedulerConfig,
+                           max_seq: int, calibration: dict, score: dict,
+                           shared_variant: str) -> dict:
+    """Dooly's loop: plan and profile ``cfgs`` (the first is the served
+    model), calibrate DoolySim on one engine run, then serve the score trace
+    twice on the engine and predict it.  Kernel counts are zeroed just
+    before the plan's execution and read after the last engine run."""
+    cfg = cfgs[0]
+    cuda = device.type == "cuda"
+    fallbacks = fingerprint.fallbacks
+    with ProfileStore(hardware=hardware, oracle=oracle, sweep=sweep,
+                      device=device) as store:
+        t0 = time.perf_counter()
+        plan = store.plan(cfgs, backends=(PROFILE_BACKEND,))
+        plan_s = time.perf_counter() - t0
+        _require(fingerprint.fallbacks == fallbacks,
+                 f"no fingerprint fell back ({fingerprint.fallbacks - fallbacks} "
+                 f"did; the last with {fingerprint.last_error})")
+        cov = plan.coverage()
+        print(f"[12 profile->simulate] plan of {', '.join(c.name for c in cfgs)} "
+              f"({PROFILE_BACKEND} backend, {oracle}, hardware {hardware}) built in "
+              f"{plan_s:.1f} s: {len(plan.tasks)} tasks; {_card(device)}")
+        print(cov.table())
+        _zero_counts()
+        t0 = time.perf_counter()
+        rep = store.execute(plan, workers=1)
+        exec_s = time.perf_counter() - t0
+        rows = store.stats()["measurements"]
+        _require(cov.plan_points == rep.rows_written == rows,
+                 f"dry-run points {cov.plan_points} == rows written "
+                 f"{rep.rows_written} == DB rows {rows}")
+        shared = {e.sig_hash for _, entries in plan.entries for e in entries
+                  if e.name == "self_attn" and e.variant == shared_variant}
+        _require(len(shared) == 1, f"one {shared_variant} self_attn signature "
+                 f"across the corpus ({len(shared)})")
+        task = plan.task(shared.pop())
+        _require(len(task.owners) == len(cfgs) and task.n_points == len(
+            store.db.measurement_map(task.sig_hash, hardware)),
+                 f"the {shared_variant} self_attn task is measured once and "
+                 f"shared ({task.owners})")
+        reports = [plan.legacy_report(store.db, key) for key in plan.models]
+        print(f"  executed {rep.measured} tasks, {rep.rows_written} points in "
+              f"{exec_s:.1f} s (wall); profiling GPU-seconds at "
+              f"{sweep.repeats} repeats a point: "
+              + "; ".join(f"{r.model} spent {r.spent_s:.4f} s, saved "
+                          f"{r.saved_s:.4f} s ({r.n_new} new, {r.n_reused} "
+                          f"reused)" for r in reports))
+        sim = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
+                              backend=PROFILE_BACKEND)
+        _require(not sim.latency.unprofiled_sigs(), "every call-graph signature "
+                 f"has DB points ({sim.latency.unprofiled_sigs()})")
+        engine = Engine(cfg, sched_config=sched, max_seq=max_seq,
+                        impl=PROFILE_BACKEND, seed=0, device=device)
+        calib = synthetic(calibration["n"], rate=calibration["rate"],
+                          prompt_len=calibration["prompt_len"],
+                          out_len=calibration["out_len"],
+                          seed=calibration["seed"], vocab=cfg.vocab_size)
+        engine.run(calib)
+        fit = sim.calibrate(engine.records)
+        drift = [(_decode_ms(engine.records), _card_state(device))]
+
+        def trace():
+            return sharegpt_like(score["n"], rate=score["rate"], seed=score["seed"],
+                                 scale=score["scale"], vocab=cfg.vocab_size)
+        longest = max(r.prompt_len + r.max_new_tokens for r in trace())
+        _require(longest <= max_seq, f"every request fits max_seq ({longest} "
+                 f"<= {max_seq})")
+        real, iterations = [], []
+        for _ in range(2):
+            engine.reset()
+            real.append(M.request_metrics(engine.run(trace())["requests"]))
+            iterations.append((len(engine.records),
+                               sum(1 for r in engine.records if not r.n_chunks)))
+            drift.append((_decode_ms(engine.records), _card_state(device)))
+            if len(real) == 1:
+                by_kind = _iteration_errors(sim, engine.records)
+        counts = _counts()
+        noise = M.compare(real[1], real[0])
+        sim_run = sim.run(trace())
+        predicted = M.request_metrics(sim_run["requests"])
+        cmp = M.compare(predicted, real[0])
+        roof = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
+                               latency="roofline")
+        roof_run = roof.run(trace())
+        roof_cmp = M.compare(M.request_metrics(roof_run["requests"]), real[0])
+    bad = [k for k, v in cmp.items() if not math.isfinite(v)]
+    _require(not bad, f"finite MAPEs ({bad})")
+    _require(cmp["makespan_mape"] <= MAKESPAN_MAPE_LIMIT,
+             f"makespan MAPE {cmp['makespan_mape']:.2f} <= {MAKESPAN_MAPE_LIMIT}")
+    if cuda:
+        _require(counts[0] > 0, "the loop launched the decode kernel")
+    print(f"  calibration on {calibration['n']} requests of "
+          f"{calibration['prompt_len']} tokens: " + ", ".join(
+              f"{k} {v:.6g}" for k, v in fit.items()))
+    print(f"  score trace: ShareGPT-like, {score['n']} requests, rate "
+          f"{score['rate']}/s, seed {score['seed']}, scale {score['scale']}; "
+          f"engine makespans {real[0]['finish'][-1]:.4f}, "
+          f"{real[1]['finish'][-1]:.4f} s over "
+          + ", ".join(f"{n} iterations ({d} decode-only)" for n, d in iterations)
+          + f"; DoolySim {predicted['finish'][-1]:.4f} s over "
+          f"{len(sim_run['iterations'])} iterations; roofline "
+          f"{roof_run['makespan']:.4f} s")
+    print("  iterations of engine run 1 against DoolySim's price: " + "; ".join(
+        f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} predicted "
+        f"(median), MAPE {v['mape']:.2f} %, bias {v['bias']:+.2f} %"
+        for k, v in by_kind.items()))
+    ttft_bias = float(np.mean((predicted["ttft"] - real[0]["ttft"]) / real[0]["ttft"]))
+    print(f"  TTFT mean signed error of DoolySim vs engine run 1: "
+          f"{100 * ttft_bias:+.2f} %")
+    print("  median decode-only iteration, calibration run and score runs 1 "
+          "and 2, with the card's SM clock, power and temperature after each: "
+          + "; ".join(f"{ms:.3f} ms ({state})" for ms, state in drift))
+    print(f"  engine self-noise (run 2 vs run 1): {_mapes(noise)}")
+    print(f"  DoolySim vs the engine: {_mapes(cmp)}; paper bars TTFT 5 %, "
+          f"TPOT 8 %: " + ", ".join(
+              f"{k} {'held' if cmp[k] <= bar else 'failed'}"
+              for k, bar in PAPER_MAPE.items()))
+    print(f"  roofline vs the engine: {_mapes(roof_cmp)}")
+    print(f"  kernel launches (decode, flash fwd, flash bwd, scan) over the "
+          f"execution and the engine runs: {counts}")
+    return {"coverage": cov.to_json(), "plan_s": plan_s, "execute_s": exec_s,
+            "rows": rows, "spent_s": [r.spent_s for r in reports],
+            "saved_s": [r.saved_s for r in reports], "calibration": fit,
+            "noise": noise, "sim": cmp, "roofline": roof_cmp,
+            "roofline_makespan_s": roof_run["makespan"],
+            "engine_makespans_s": [float(r["finish"][-1]) for r in real],
+            "engine_iterations": iterations, "iteration_errors": by_kind,
+            "decode_ms": [ms for ms, _ in drift],
+            "ttft_bias": ttft_bias,
+            "sim_iterations": len(sim_run["iterations"]),
+            "decode_launches": counts[0], "flash_launches": counts[1]}
+
+
+RESULT_TAG = "profile-simulate result: "
+
+
+def profile_simulate_main() -> int:
+    """Phase 12 on its own, as the parent script runs it in a fresh process;
+    its result goes to the parent as one tagged JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    out = phase_profile_simulate(
+        [get_config(n) for n in PROFILE_MODELS], device, oracle="cuda_events",
+        hardware=default_hardware(), sweep=PROFILE_SWEEP,
+        sched=SCHED, max_seq=MAX_SEQ, calibration=CALIBRATION, score=SCORE,
+        shared_variant=SHARED_VARIANT)
+    print(RESULT_TAG + json.dumps(out))
+    return 0
+
+
+def phase_profile_simulate_process() -> dict:
+    """Runs phase 12 in a child process and returns its result."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--profile-simulate"], capture_output=True, text=True,
+                         timeout=900)
+    lines = run.stdout.splitlines()
+    print("\n".join(line for line in lines if not line.startswith(RESULT_TAG)))
+    if run.returncode != 0:
+        print(run.stderr[-8000:], file=sys.stderr)
+        raise RuntimeError(f"phase 12 failed with exit code {run.returncode}")
+    tagged = [line for line in lines if line.startswith(RESULT_TAG)]
+    _require(len(tagged) == 1, "phase 12 reported one result")
+    return json.loads(tagged[0][len(RESULT_TAG):])
+
+
 def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
-                 train: dict, mamba_serving: dict, mamba_prefill: dict) -> dict:
+                 train: dict, mamba_serving: dict, mamba_prefill: dict,
+                 loop: dict) -> dict:
     """Launches are counted on the main paths: decode while serving llama3
-    (one run) and granite-20b, the flash forward over the prefill and the
-    train steps, the backward over the train steps, the scan while serving
-    falcon-mamba (one run) and over its prefill."""
+    (one run) and granite-20b and over phase 12's loop, the flash forward
+    over the prefill, the train steps and the loop, the backward over the
+    train steps, the scan while serving falcon-mamba (one run) and over its
+    prefill."""
     launches = {"decode_attention": serving["decode_launches"]
-                + granite["decode_launches"],
+                + granite["decode_launches"] + loop["decode_launches"],
                 "flash_attention_fwd": prefill["flash_launches"]
-                + train["flash_fwd_launches"],
+                + train["flash_fwd_launches"] + loop["flash_launches"],
                 "flash_attention_bwd": train["flash_bwd_launches"],
                 "mamba_scan": mamba_serving["scan_launches"]
                 + mamba_prefill["scan_launches"]}
@@ -1281,6 +1532,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--profile-simulate"]:
+        return profile_simulate_main()
     cfg, mcfg = get_config("llama3-8b"), get_config(MAMBA)
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -1298,9 +1551,11 @@ def main() -> int:
     granite = phase_granite_serving(get_config(GRANITE), device)
     phase_tracer([(get_config(n), get_smoke_config(n)) for n in ("llama3-8b", GRANITE)],
                  device)
-    print(f"[12] all phases passed in {time.perf_counter() - t0:.1f} s")
+    _release(device)
+    loop = phase_profile_simulate_process()
+    print(f"[13] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill)
+                 mamba_prefill, loop)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -15,19 +15,31 @@ Counterpart of ``repro.core.backends``:
   capture, not on replays.  It runs on the card only.
 * ``cpu_wallclock`` — host timing of one call on CPU tensors, for the CPU
   tests.
+* ``h100_analytical`` — the counterpart of the reference's
+  ``tpu_analytical``: the H100's roofline over one call, max(FLOPs / peak,
+  bytes / HBM bandwidth).  FLOPs are counted by
+  ``torch.utils.flop_counter.FlopCounterMode`` on meta tensors, bytes are
+  the call's tensor inputs (a module's weights included) read once and its
+  outputs written once, and the peaks are ``parallel.roofline``'s.  It
+  allocates nothing and is deterministic, so the CPU tests use it where the
+  reference's use ``tpu_analytical``.  The hand-written kernels neither run
+  on meta tensors nor show their FLOPs to the counter, so a caller passes a
+  call through its plain path.
 
-Both return seconds.  The reference's ``tpu_analytical`` roofline has no
-counterpart here; an H100 roofline comes with the latency-DB slice.
+All return seconds.
 """
 from __future__ import annotations
 
 import functools
 import time
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
+from torch import nn
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.parallel.roofline import H100, peaks
 
 
 def _median(xs) -> float:
@@ -103,3 +115,65 @@ def cpu_wallclock(fn: Callable, args: Sequence[Any], *, repeats: int = 5,
         times.append(time.perf_counter() - t0)
     return max(_median(times), 1e-8)
 
+
+
+def _to_meta(x):
+    """Tensors and TensorSpecs (anything with ``shape`` and ``dtype``) ->
+    meta tensors, through tuples, lists and dicts; anything else (a module
+    on the meta device) as it is."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    if isinstance(x, Mapping):
+        return {k: _to_meta(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)) and not hasattr(x, "shape"):
+        return type(x)(_to_meta(v) for v in x)
+    if hasattr(x, "shape") and hasattr(x, "dtype"):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return x
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, nn.Module):
+        yield from x.parameters()
+        yield from x.buffers()
+    elif isinstance(x, Mapping):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def h100_analytical(fn: Callable, args: Sequence[Any]) -> float:
+    """Roofline seconds of one ``fn(*args)`` on an H100 80GB HBM3, counted
+    on meta tensors: max(FLOPs at the peak of the inputs' floating dtype,
+    bytes read and written at the HBM rate)."""
+    margs = _to_meta(tuple(args))
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        out = fn(*margs)
+    ins = list(_tensors(margs))
+    floats = [t.dtype for t in ins if t.dtype.is_floating_point]
+    dtype = max(set(floats), key=floats.count) if floats else torch.float32
+    nbytes = sum(t.numel() * t.element_size() for t in ins)
+    nbytes += sum(t.numel() * t.element_size() for t in _tensors(out))
+    p = peaks(H100)
+    return max(counter.get_total_flops() / p.peak_flops(dtype),
+               nbytes / p.hbm_bw, 1e-7)
+
+
+ORACLES = {"cuda_events": cuda_events, "cpu_wallclock": cpu_wallclock,
+           "h100_analytical": h100_analytical}
+
+
+def measure(oracle: str, fn: Callable, args: Sequence[Any],
+            materialize: Callable = None) -> float:
+    """Seconds of one ``fn(*args)`` by the named oracle; ``materialize``
+    turns ``args`` into what the oracle calls ``fn`` with."""
+    if oracle not in ORACLES:
+        raise KeyError(f"unknown oracle {oracle!r}; known: "
+                       f"{', '.join(sorted(ORACLES))}")
+    if materialize is not None:
+        args = materialize(args)
+    return ORACLES[oracle](fn, args)

@@ -20,11 +20,12 @@ NUM_TOKS / NUM_REQS dims are substituted per sweep point, MIX dims are
 recalculated from H with the workload component replaced, untainted dims
 are kept.  Inputs are drawn from an explicit ``torch.Generator`` on the
 device the entry runs on: the card unless the caller passes
-``device="cpu"``.
+``device="cpu"``; on the ``meta`` device they are shapes only.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -83,7 +84,10 @@ def resize_shape(shape: Sequence[int], taints: Sequence[Taint], *,
 def generate_tensor(shape, dtype: torch.dtype, generator: torch.Generator,
                     device: torch.device) -> torch.Tensor:
     """Integers zero (valid indices everywhere), booleans true, floats
-    normal * 0.02 from ``generator``, as the reference's ``generate_array``."""
+    normal * 0.02 from ``generator``, as the reference's ``generate_array``;
+    on the meta device an empty tensor of that shape."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if dtype == torch.bool:
         return torch.ones(shape, dtype=dtype, device=device)
     if not dtype.is_floating_point:
@@ -92,7 +96,9 @@ def generate_tensor(shape, dtype: torch.dtype, generator: torch.Generator,
     return (x * 0.02).to(dtype)
 
 
-def _generator(device: torch.device, seed: int) -> torch.Generator:
+def _generator(device: torch.device, seed: int) -> Optional[torch.Generator]:
+    if device.type == "meta":
+        return None
     return torch.Generator(device=device).manual_seed(seed)
 
 
@@ -136,6 +142,21 @@ def _fill(template, tensors: Sequence[torch.Tensor], device: torch.device,
 # runnable-set entries
 # ---------------------------------------------------------------------------
 
+def entry_task_id(sig_hash: str, hardware: str) -> str:
+    """Canonical identity of one measurement task: a signature swept on one
+    hardware.  This is the unit of corpus-wide dedup (two models needing
+    the same id share one measurement), of DB satisfaction checks, and of
+    ProfilePlan journaling/resume — one string, so a checkpoint file and a
+    plan built in another process agree byte-for-byte."""
+    return f"{hardware}:{sig_hash}"
+
+
+def resolve_overload(name: str):
+    """``"aten.mm.default"`` -> ``torch.ops.aten.mm.default``."""
+    namespace, packet, overload = name.split(".")
+    return getattr(getattr(getattr(torch.ops, namespace), packet), overload)
+
+
 @dataclass
 class OpEntry:
     """Operator-level entry: one aten overload that runs on its own."""
@@ -144,6 +165,8 @@ class OpEntry:
     count: int                      # occurrences across collapsed layers
     module: str                     # canonical module path
     sweepable: bool = True
+    #: detached form: the overload's name, for a trace op without ``func``
+    bind: Optional[str] = None
 
     def callable(self, *, toks=None, reqs=None, device: Device = "cuda"):
         """(fn, tensors): ``fn(*tensors)`` runs the op at (toks, reqs)."""
@@ -155,6 +178,11 @@ class OpEntry:
                      resize_shape(self.op.out_shapes[0], self.op.out_taints[0],
                                   toks=toks, reqs=reqs))
         func, template = self.op.func, self.op.template
+        if func is None:
+            if self.bind is None:
+                raise ValueError(f"OpEntry {self.kind!r} has neither a live "
+                                 "overload nor a detached name")
+            func = resolve_overload(self.bind)
 
         def fn(*ts):
             args, kwargs = _fill(template, ts, dev, sizes)
@@ -164,6 +192,17 @@ class OpEntry:
     def run(self, *, toks=None, reqs=None, device: Device = "cuda"):
         fn, tensors = self.callable(toks=toks, reqs=reqs, device=device)
         return fn(*tensors)
+
+
+def detach_op_entry(entry: OpEntry) -> OpEntry:
+    """Picklable copy of an OpEntry, for a spawn-started worker: the aten
+    overload (which does not pickle) is replaced by its name, which
+    ``callable`` resolves back.  The trace op's template and taints pickle
+    as they are, and the inputs are generated from shapes on the worker's
+    side, so nothing else needs detaching."""
+    return dataclasses.replace(
+        entry, op=dataclasses.replace(entry.op, func=None),
+        bind=entry.op.prim)
 
 
 @dataclass

@@ -11,13 +11,15 @@ backend, so the profiled computation is exactly the served computation.
 ``build_context(cfg, kind, ...)`` returns a ``ModuleContext``: ``params``
 and ``input_spec(toks, reqs, ctx)`` are ``TensorSpec`` stand-ins,
 ``materialize`` turns them into tensors on the context's device from a
-seeded ``torch.Generator``, ``module(weights)`` binds weights into the
-engine's module of that kind, and ``fn(module, *inputs)`` runs one call.
-The other module kinds (MLA, MoE, cross-attention) come with their
-families' slices.
+seeded ``torch.Generator`` (shapes only on the ``meta`` device),
+``module(weights)`` binds weights into the engine's module of that kind,
+and ``fn(module, *inputs)`` runs one call.  ``cached_build_context``
+memoizes the builder, as the reference's does.  The other module kinds
+(MLA, MoE, cross-attention) come with their families' slices.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
@@ -56,12 +58,15 @@ class ModuleContext:
     def materialize(self, tree, generator: Optional[torch.Generator] = None):
         """TensorSpecs (alone, or in a tuple, list or dict) -> tensors on the
         context's device: integers zero, floats normal * 0.02, as the
-        reference's ``materialize``."""
-        if generator is None:
+        reference's ``materialize``; empty tensors on the meta device."""
+        meta = self.device.type == "meta"
+        if generator is None and not meta:
             generator = torch.Generator(device=self.device).manual_seed(0)
 
         def gen(x):
             if isinstance(x, TensorSpec):
+                if meta:
+                    return torch.empty(x.shape, dtype=x.dtype, device=self.device)
                 if not x.dtype.is_floating_point:
                     return torch.zeros(x.shape, dtype=x.dtype,
                                        device=self.device)
@@ -175,6 +180,33 @@ def _mamba_context(cfg: ModelConfig, phase: str, backend: str,
                     TensorSpec((reqs, di, st), f32))
     return ModuleContext("mamba", phase, backend, fn, params, inputs, attrs,
                          cfg, dev)
+
+
+_CONTEXT_CACHE: "OrderedDict[Tuple, Tuple[ModelConfig, ModuleContext]]" = \
+    OrderedDict()
+CONTEXT_CACHE_SIZE = 256
+
+
+def cached_build_context(cfg: ModelConfig, kind: str, *,
+                         phase: str = "prefill", backend: str = "xla",
+                         window: int = 0, device: Device = "cuda"
+                         ) -> ModuleContext:
+    """Bounded LRU memo over ``build_context``, keyed by cfg *object*
+    identity (configs are module-level singletons) and the device; the cfg
+    is held in the value so an id() cannot be reused by a different live
+    config."""
+    dev = resolve_device(device)
+    key = (id(cfg), kind, phase, backend, window, str(dev))
+    hit = _CONTEXT_CACHE.get(key)
+    if hit is not None and hit[0] is cfg:
+        _CONTEXT_CACHE.move_to_end(key)
+        return hit[1]
+    mc = build_context(cfg, kind, phase=phase, backend=backend,
+                       window=window, device=dev)
+    _CONTEXT_CACHE[key] = (cfg, mc)
+    while len(_CONTEXT_CACHE) > CONTEXT_CACHE_SIZE:
+        _CONTEXT_CACHE.popitem(last=False)
+    return mc
 
 
 def phases_for(kind: str, cfg: ModelConfig) -> Tuple[str, ...]:

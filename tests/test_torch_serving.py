@@ -27,6 +27,7 @@ from repro.serving.engine import Engine as JaxEngine
 from repro.serving.engine import bucket_chunk as jax_bucket_chunk
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.backends import cpu_wallclock, cuda_events
+from repro_torch.core.profiler import SweepConfig
 from repro_torch.models import params_from_jax
 from repro_torch.serving import (Engine, SchedulerConfig,
                                  build_context, bucket_chunk)
@@ -243,8 +244,17 @@ def test_chip_smoke_phases_on_cpu(capsys):
     mamba_measured = cs.phase_mamba_measure(mcfg, cpu)
     granite = cs.phase_granite_serving(gcfg, cpu)
     traced = cs.phase_tracer([(cfg, cfg), (gcfg, gcfg)], cpu)
+    loop = cs.phase_profile_simulate(
+        [cfg, get_smoke_config("command-r7b")], cpu, oracle="h100_analytical",
+        hardware="cpu", sweep=SweepConfig(toks=(8, 16, 32), reqs=(1, 4),
+                                          ctx=(64, 256),
+                                          op_points=((8, 1), (16, 1), (32, 1),
+                                                     (1, 4)), repeats=20),
+        sched=SchedulerConfig(**SCHED), max_seq=256,
+        calibration=dict(n=4, rate=1.0, prompt_len=64, out_len=8, seed=9),
+        score=dict(n=12, rate=4.0, seed=4, scale=0.05), shared_variant="4/2/32")
     line = cs.kernels_line(kernels, serving, granite, prefill, train,
-                           mamba_serving, mamba_prefill)
+                           mamba_serving, mamba_prefill, loop)
     assert [k["name"] for k in line["kernels"]] == [
         "decode_attention", "flash_attention_fwd", "flash_attention_bwd",
         "mamba_scan"]
@@ -296,6 +306,16 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert "[3b kernels] mamba_scan" in out and "[8 mamba prefill]" in out
     assert "[10 granite serving]" in out and "makespans" in out
     assert "[11 tracer]" in out
+    # phase 12: the plan dedups the shared self_attn task, every planned point
+    # lands, and the sim is scored against the engine
+    cov = loop["coverage"]
+    assert cov["shared_tasks"] > 0 and cov["plan_points"] == loop["rows"] > 0
+    assert all(np.isfinite(v) for v in loop["sim"].values())
+    assert loop["sim"]["makespan_mape"] <= cs.MAKESPAN_MAPE_LIMIT
+    assert len(loop["engine_makespans_s"]) == 2 and loop["decode_launches"] == 0
+    assert loop["spent_s"][0] > 0 and loop["saved_s"][1] > 0
+    assert "[12 profile->simulate]" in out and "dedup:" in out
+    assert "engine self-noise" in out and "DoolySim vs the engine" in out
 
 
 def test_chip_smoke_train_counts_remat_launches(monkeypatch):

@@ -14,7 +14,8 @@ merged (B*S) dim against a ``dot_general`` on (B, S)).  What must agree:
 * ``reshape_taints`` on the same inputs.
 
 Other op entries are not compared.  ``core/taint.py`` and
-``core/callgraph.py`` are copies of the reference's.
+``core/callgraph.py`` are copies of the reference's, as are the latency
+DB, the latency model, the journal and the supervisor.
 """
 from pathlib import Path
 
@@ -45,7 +46,8 @@ def _as_copy(name: str, ref_text: str) -> str:
                      for line in ref_text.split("\n"))
 
 
-@pytest.mark.parametrize("name", ["taint", "callgraph"])
+@pytest.mark.parametrize("name", ["taint", "callgraph", "database",
+                                  "latency_model", "journal", "supervisor"])
 def test_core_module_is_a_copy(name):
     ref = (ROOT / "src/repro/core" / f"{name}.py").read_text()
     port = (ROOT / "src/repro_torch/core" / f"{name}.py").read_text()
