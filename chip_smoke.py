@@ -110,9 +110,42 @@ them, one line per phase:
              on the engine (its self-noise) and predicted by DoolySim:
              TTFT, TPOT and makespan MAPE, beside the roofline backend's
              makespan.  It fails on a MAPE that is not finite, a DB point
-             missing, or a makespan MAPE above 25 %.
+             missing, or a makespan MAPE above 25 %.  Then the same child
+             sweeps llama3-8b at full width on that DB (Sweep, uncalibrated,
+             as the reference prices a grid: max_num_seqs {4, 8} x
+             max_batch_tokens {256, 512}, chunks of 256, on the score
+             trace), the engine serves the (4, 256, 256) scenario once, and
+             the sweep's DoolySim, bare and with phase 12's calibration
+             terms, is scored against it by TTFT, TPOT and makespan MAPE
+             beside the paper's bars; it fails on a failed scenario or a
+             MAPE that is not finite.
+13. cli     — Dooly's configuration-search surface through its command
+             lines, each step a fresh process that runs the CLI module as
+             ``python -m repro_torch.<cli>`` does (launched through this
+             script, which reports the process's kernel launches), files
+             under build/chip/cli: ``profile plan --full`` of llama3-8b and
+             command-r7b (kernel backend, quick sweep; the dry run), ``run
+             --shards 2`` for each shard into its own scratch DB, ``merge``
+             (must report "exact, all shards merged"), ``run --resume`` on
+             the merged DB (must measure 0) and ``audit`` (must exit 0); the
+             merged rows must equal the dry run's points and the GQA
+             32/8/128 self_attn signature must be shared by both models and
+             measured by one shard only; the points the shards measured
+             and phase 12 measured too (a third process, its DB under
+             build/chip) must agree, by a median relative difference of at
+             most 10 %; each process's wall and execute seconds and the
+             profiling GPU-seconds spent and saved (the plan's accounting,
+             at the sweep's 100 repeats a point) are printed.  Then
+             ``sweep --eval-workers 2`` on that DB (32 scenarios over the
+             two smoke configs, which it profiles on the card first: failed
+             0, workers 2), the same with
+             ``--compare-latency oracle`` (its corpus-wide errors printed)
+             and ``optimize`` at its defaults (a recommendation, no failed
+             scenario).
 A JSON line then lists every kernel with its launches on the main paths,
 its largest error against its plain version, and its times.
+``python3 chip_smoke.py --profile-simulate`` runs phase 12 alone, and
+``python3 chip_smoke.py --cli MODULE ARGS...`` runs one CLI step of phase 13.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises and
 the script exits non-zero; without a CUDA device it exits 1 at once.  Each
@@ -125,6 +158,7 @@ import gc
 import json
 import math
 import re
+import runpy
 import subprocess
 import sys
 import time
@@ -136,15 +170,18 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.api import ProfileStore  # noqa: E402
+from repro_torch.api import (ProfileStore, SchedSpec,  # noqa: E402
+                              WorkloadSpec, expand_grid)
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.core.profiler import SweepConfig  # noqa: E402
+from repro_torch.core.profiler import QUICK_SWEEP, SweepConfig  # noqa: E402
 from repro_torch.core.signature import fingerprint  # noqa: E402
 from repro_torch.parallel.roofline import default_hardware  # noqa: E402
 from repro_torch.core.opset import (ModuleEntry, OpEntry,  # noqa: E402
                                     find_runnable_set)
 from repro_torch.core.runner import trace_model  # noqa: E402
-from repro_torch.core.backends import cpu_wallclock, cuda_events  # noqa: E402
+from repro_torch.core.backends import (cpu_wallclock, cuda_events,  # noqa: E402
+                                       launch_floor)
+from repro_torch.core.database import LatencyDB  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -174,7 +211,11 @@ NOMINAL_SMS, NOMINAL_SM_HZ = 132, 1.98e9
 #: of 48 (granite-20b's) and 40 (an uneven last slice of 32 rows)
 DECODE_CASES = [(2, 4, 2, 256, 64, 0), (3, 8, 1, 512, 64, 0),
                 (2, 4, 4, 256, 64, 64), (1, 8, 2, 128, 32, 0),
-                (2, 48, 1, 256, 64, 0), (3, 80, 2, 128, 32, 0)]
+                (2, 48, 1, 256, 64, 0), (3, 80, 2, 128, 32, 0),
+                # the decode points phase 13's sweep CLI profiles on the two
+                # smoke configs: reqs {1, 2} x ctx {64, 128}, 4/2/32, fp32
+                (1, 4, 2, 64, 32, 0), (2, 4, 2, 64, 32, 0),
+                (1, 4, 2, 128, 32, 0), (2, 4, 2, 128, 32, 0)]
 FLASH_CASES = [(2, 128, 128, 4, 2, 64, True, 0), (1, 256, 256, 8, 8, 32, True, 0),
                (2, 128, 128, 4, 1, 64, True, 48), (1, 100, 100, 2, 2, 64, False, 0),
                (1, 64, 192, 4, 2, 32, True, 0)]
@@ -217,6 +258,16 @@ SCORE = dict(n=32, rate=4.0, seed=4, scale=0.25)
 SHARED_VARIANT = "32/8/128"          # the GQA geometry llama3 shares
 MAKESPAN_MAPE_LIMIT = 25.0
 PAPER_MAPE = {"ttft_mape": 5.0, "tpot_mape": 8.0}
+#: phase 12's sweep: scheduler specs inside the points its profile brackets
+#: (decode batches <= 8, chunks <= 256), and the one the engine serves
+SCORING = dict(seqs=(4, 8), tokens=(256, 512), chunk=256, served=(4, 256, 256))
+#: phase 13: the CLI steps' files, and the tag of a step's kernel launches
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip" / "cli"
+LAUNCHES_TAG = "cli kernel launches: "
+#: phase 12's DB, against which phase 13 holds the points its CLI processes
+#: measure, and the most their median relative difference may be
+PHASE12_DB = CLI_DIR.parent / "phase12.sqlite"
+AGREE_LIMIT = 0.10
 
 #: the libraries whose bf16 path runs on the tensor cores, and the SASS
 #: instructions of which one must appear: wgmma (HGMMA), or mma.sync (HMMA)
@@ -287,13 +338,15 @@ def _time_ms(fn, device, reps: int = 20, warmup: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _device_ms(fn, device, name: str, reps: int = 10):
-    """Mean device time of one call's kernels whose name holds ``name`` by
+def _device_ms(fn, device, name: str = "", reps: int = 10):
+    """Mean device time of one call's kernels whose name holds ``name`` (all
+    of its device activity, kernels, copies and fills, without a name) by
     torch.profiler, calls back to back with the L2 cache warm: the card's own
     time, without the host's launch path and the cold cache that
     ``_time_ms`` includes.  None off the card."""
     if device.type != "cuda":
         return None
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize(device)
@@ -302,7 +355,7 @@ def _device_ms(fn, device, name: str, reps: int = 10):
             fn()
         torch.cuda.synchronize(device)
     us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-             if name in e.key)
+             if (name in e.key if name else e.device_type == DeviceType.CUDA))
     return us / reps / 1e3
 
 
@@ -459,6 +512,8 @@ def _decode_case(rng, b, kv, g, smax, d, window, dtype, device, timed: bool,
         mask = mask[:, None, None, :]
         res["library_ms"] = _time_ms(lambda: _sdpa(qh, kh, vh, attn_mask=mask),
                                      device)
+        res["library_device_ms"] = _device_ms(
+            lambda: _sdpa(qh, kh, vh, attn_mask=mask), device)
     return res
 
 
@@ -487,6 +542,8 @@ def _flash_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         res["library_ms"] = _time_ms(lambda: _sdpa(qh, kh, vh, is_causal=causal),
                                      device)
+        res["library_device_ms"] = _device_ms(
+            lambda: _sdpa(qh, kh, vh, is_causal=causal), device)
     return res
 
 
@@ -538,6 +595,8 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
         o = _sdpa(*leaves, is_causal=causal)
         doh = do.transpose(1, 2)
         res["library_ms"] = _time_ms(lambda: torch.autograd.grad(
+            o, leaves, doh, retain_graph=True), device)
+        res["library_device_ms"] = _device_ms(lambda: torch.autograd.grad(
             o, leaves, doh, retain_graph=True), device)
     return res
 
@@ -605,21 +664,24 @@ def phase_kernels(cfg, device, gqa_cfg=None) -> dict:
         print(f"[3 kernels] {name}: {len(errs[name]) + 1} cases agree with the "
               f"plain version (max abs err {res['max_abs_err']:.3g}{scaled}); "
               f"main path {res['ms']:.4f} ms{dev}, plain {res['plain_ms']:.4f} ms, "
-              f"library {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
-              f"ms ({res['bound_by']}); {card}")
+              f"library {res['library_ms']:.4f} ms{_dev(res, 'library_')}, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}); {card}")
         for shape, r in res.get("timed", {}).items():
             reread = (f"; slices re-read {r['reread_bytes'] / 2**20:.1f} MiB of "
                       "K/V (from L2 when they run side by side)"
                       if r.get("reread_bytes") else "")
             print(f"  {shape}: kernel {r['ms']:.4f} ms{_dev(r)}, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){reread}")
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+                  f"{_dev(r, 'library_')}, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}){reread}")
     return main
 
 
-def _dev(res) -> str:
-    return (f" (device {res['device_ms']:.4f} ms)"
-            if res.get("device_ms") is not None else "")
+def _dev(res, prefix: str = "") -> str:
+    """The profiler's device time of the kernel (or, with ``prefix``
+    "library_", of the library call), where the card gave one."""
+    ms = res.get(f"{prefix}device_ms")
+    return f" (device {ms:.4f} ms)" if ms is not None else ""
 
 
 def _scan_case(rng, b, s, di, n, dtype, device, *, h0: bool, timed: bool,
@@ -1328,18 +1390,103 @@ def _iteration_errors(sim, records) -> dict:
     return out
 
 
+def _bias(pred: dict, real: dict, key: str) -> float:
+    """Mean signed relative error of the predicted per-request ``key``
+    against the engine's."""
+    return float(np.mean((pred[key] - real[key]) / real[key]))
+
+
+def _sweep_scoring(store, cfg, device, *, config_fn, sched: SchedulerConfig,
+                   max_seq: int, score: dict, scoring: dict, fit: dict) -> dict:
+    """The sweep on phase 12's DB: ``cfg`` (registered as
+    ``PROFILE_MODELS[0]``) over ``scoring``'s scheduler specs on the score
+    trace, priced by Sweep with no calibration, as the reference's sweep
+    prices a grid.  Then the engine serves the ``served`` scenario once, and
+    the sweep's own DoolySim for it is scored against that run bare and with
+    phase 12's calibration terms ``fit`` applied."""
+    model = PROFILE_MODELS[0]
+    _require(config_fn(model) == cfg, f"{model} resolves to the served config")
+    specs = [SchedSpec(s, t, scoring["chunk"], sched.prefix_caching)
+             for s in scoring["seqs"] for t in scoring["tokens"]]
+    workload = WorkloadSpec(kind="sharegpt", n=score["n"], rate=score["rate"],
+                            seed=score["seed"], scale=score["scale"],
+                            vocab=cfg.vocab_size)
+    grid = expand_grid([model], specs, [workload], backends=(PROFILE_BACKEND,),
+                       hardware=store.hardware, max_seq=max_seq)
+    sweep = store.sweep(config_fn=config_fn)
+    _require(sweep.profile_plan(grid) is None,
+             "the sweep finds its model profiled and measures nothing")
+    t0 = time.perf_counter()
+    out = sweep.run(grid)
+    sweep_s = time.perf_counter() - t0
+    _require(not out.failures and len(out.results) == len(grid),
+             f"every scenario of the sweep evaluated ({out.failure_table()})")
+    served = SchedSpec(*scoring["served"], prefix_caching=sched.prefix_caching)
+    scn = next(s for s in grid if s.sched == served)
+    row = out.results[grid.index(scn)]
+    engine = Engine(cfg, sched_config=served.to_config(), max_seq=max_seq,
+                    impl=PROFILE_BACKEND, seed=0, device=device)
+    real = M.request_metrics(engine.run(workload.build())["requests"])
+    del engine
+    _release(device)
+    sim = sweep.sim(scn)
+    bare = sim.run(workload.build())
+    _require(abs(bare["makespan"] - row.makespan) <= 1e-9,
+             f"the sweep's makespan {row.makespan} is its DoolySim's "
+             f"{bare['makespan']}")
+    bare = M.request_metrics(bare["requests"])
+    for k, v in fit.items():
+        setattr(sim, k, v)
+    calibrated = M.request_metrics(sim.run(workload.build())["requests"])
+    forms = {"uncalibrated": bare, "calibrated": calibrated}
+    cmp = {k: M.compare(v, real) for k, v in forms.items()}
+    bias = {k: {m: _bias(v, real, m) for m in ("ttft", "tpot")}
+            for k, v in forms.items()}
+    bad = [(k, m) for k, c in cmp.items() for m, v in c.items()
+           if not math.isfinite(v)]
+    _require(not bad, f"finite MAPEs of the sweep's prediction ({bad})")
+    print(f"[12 sweep] {model} ({cfg.name}) on the loop's DB: {len(grid)} "
+          f"scenarios ({', '.join(s.label() for s in specs)}; "
+          f"{workload.label()}) in {sweep_s:.3f} s, failed 0, summary "
+          f"{out.summary}; frontier (tpot_mean): "
+          + ", ".join(r.scenario.sched.label() for r in out.frontier()))
+    for r in out.results:
+        print(f"  {r.scenario.sched.label()}: {r.mode}, TTFT mean {r.ttft_mean:.5f} "
+              f"s, TPOT mean {r.tpot_mean:.6f} s, makespan {r.makespan:.4f} s, "
+              f"cost {r.cost:.4f}")
+    print(f"  engine served {served.label()} once: makespan "
+          f"{real['finish'][-1]:.4f} s, TTFT mean {real['ttft'].mean():.5f} s, "
+          f"TPOT mean {real['tpot'].mean():.6f} s; {_card(device)}")
+    for k in forms:
+        terms = ("" if k == "uncalibrated" else " (" + ", ".join(
+            f"{n} {v:.6g}" for n, v in fit.items()) + ")")
+        bars = ", ".join(f"{m} {'held' if cmp[k][m] <= bar else 'failed'}"
+                         for m, bar in PAPER_MAPE.items())
+        print(f"  sweep's DoolySim {k}{terms} vs the engine: {_mapes(cmp[k])}; "
+              f"signed TTFT {100 * bias[k]['ttft']:+.2f} %, TPOT "
+              f"{100 * bias[k]['tpot']:+.2f} %; paper bars TTFT 5 %, TPOT 8 %: "
+              f"{bars}")
+    return {"scenarios": len(grid), "sweep_s": sweep_s, "summary": out.summary,
+            "served": served.label(),
+            "engine_makespan_s": float(real["finish"][-1]),
+            "mape": cmp, "bias": bias}
+
+
 def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                            sweep: SweepConfig, sched: SchedulerConfig,
                            max_seq: int, calibration: dict, score: dict,
-                           shared_variant: str) -> dict:
+                           shared_variant: str, scoring: dict,
+                           config_fn, db: str) -> dict:
     """Dooly's loop: plan and profile ``cfgs`` (the first is the served
     model), calibrate DoolySim on one engine run, then serve the score trace
-    twice on the engine and predict it.  Kernel counts are zeroed just
-    before the plan's execution and read after the last engine run."""
+    twice on the engine and predict it; then sweep the served model on that
+    DB (``_sweep_scoring``; ``config_fn`` resolves its registry name).
+    Kernel counts are zeroed just before the plan's execution and read after
+    the last engine run.  ``db``: where the store keeps its points."""
     cfg = cfgs[0]
     cuda = device.type == "cuda"
     fallbacks = fingerprint.fallbacks
-    with ProfileStore(hardware=hardware, oracle=oracle, sweep=sweep,
+    with ProfileStore(db, hardware=hardware, oracle=oracle, sweep=sweep,
                       device=device) as store:
         t0 = time.perf_counter()
         plan = store.plan(cfgs, backends=(PROFILE_BACKEND,))
@@ -1380,6 +1527,14 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                               backend=PROFILE_BACKEND)
         _require(not sim.latency.unprofiled_sigs(), "every call-graph signature "
                  f"has DB points ({sim.latency.unprofiled_sigs()})")
+        # each point is one graph replay less this floor, so a model step
+        # priced from calls_per_step points has it subtracted that often
+        floor_us = launch_floor(device) * 1e6 if cuda else None
+        calls_per_step = sum(row.count for row in sim.latency.rows)
+        if cuda:
+            print(f"  cuda_events launch floor {floor_us:.3f} us a point; "
+                  f"{calls_per_step} timed calls price one step of {cfg.name} "
+                  f"({calls_per_step * floor_us / 1e3:.3f} ms of floor)")
         engine = Engine(cfg, sched_config=sched, max_seq=max_seq,
                         impl=PROFILE_BACKEND, seed=0, device=device)
         calib = synthetic(calibration["n"], rate=calibration["rate"],
@@ -1405,7 +1560,8 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
             drift.append((_decode_ms(engine.records), _card_state(device)))
             if len(real) == 1:
                 by_kind = _iteration_errors(sim, engine.records)
-        counts = _counts()
+        del engine
+        _release(device)
         noise = M.compare(real[1], real[0])
         sim_run = sim.run(trace())
         predicted = M.request_metrics(sim_run["requests"])
@@ -1414,6 +1570,10 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                                latency="roofline")
         roof_run = roof.run(trace())
         roof_cmp = M.compare(M.request_metrics(roof_run["requests"]), real[0])
+        scored = _sweep_scoring(store, cfg, device, config_fn=config_fn,
+                                sched=sched, max_seq=max_seq, score=score,
+                                scoring=scoring, fit=fit)
+        counts = _counts()
     bad = [k for k, v in cmp.items() if not math.isfinite(v)]
     _require(not bad, f"finite MAPEs ({bad})")
     _require(cmp["makespan_mape"] <= MAKESPAN_MAPE_LIMIT,
@@ -1435,7 +1595,7 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
         f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} predicted "
         f"(median), MAPE {v['mape']:.2f} %, bias {v['bias']:+.2f} %"
         for k, v in by_kind.items()))
-    ttft_bias = float(np.mean((predicted["ttft"] - real[0]["ttft"]) / real[0]["ttft"]))
+    ttft_bias = _bias(predicted, real[0], "ttft")
     print(f"  TTFT mean signed error of DoolySim vs engine run 1: "
           f"{100 * ttft_bias:+.2f} %")
     print("  median decode-only iteration, calibration run and score runs 1 "
@@ -1457,8 +1617,9 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
             "engine_makespans_s": [float(r["finish"][-1]) for r in real],
             "engine_iterations": iterations, "iteration_errors": by_kind,
             "decode_ms": [ms for ms, _ in drift],
-            "ttft_bias": ttft_bias,
-            "sim_iterations": len(sim_run["iterations"]),
+            "ttft_bias": ttft_bias, "launch_floor_us": floor_us,
+            "calls_per_step": calls_per_step,
+            "sim_iterations": len(sim_run["iterations"]), "sweep": scored,
             "decode_launches": counts[0], "flash_launches": counts[1]}
 
 
@@ -1470,11 +1631,15 @@ def profile_simulate_main() -> int:
     its result goes to the parent as one tagged JSON line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
+    PHASE12_DB.parent.mkdir(parents=True, exist_ok=True)
+    for old in PHASE12_DB.parent.glob(PHASE12_DB.name + "*"):
+        old.unlink()
     out = phase_profile_simulate(
         [get_config(n) for n in PROFILE_MODELS], device, oracle="cuda_events",
         hardware=default_hardware(), sweep=PROFILE_SWEEP,
         sched=SCHED, max_seq=MAX_SEQ, calibration=CALIBRATION, score=SCORE,
-        shared_variant=SHARED_VARIANT)
+        shared_variant=SHARED_VARIANT, scoring=SCORING, config_fn=get_config,
+        db=str(PHASE12_DB))
     print(RESULT_TAG + json.dumps(out))
     return 0
 
@@ -1494,22 +1659,240 @@ def phase_profile_simulate_process() -> dict:
     return json.loads(tagged[0][len(RESULT_TAG):])
 
 
+def cli_main(argv) -> int:
+    """One CLI step of phase 13: runs ``repro_torch.<argv[0]>`` as
+    ``python -m`` does, with ``argv[1:]`` as its arguments, then reports the
+    process's kernel launches as one tagged line on standard error (standard
+    output stays the CLI's own)."""
+    module, sys.argv = argv[0], [f"repro_torch.{argv[0]}"] + list(argv[1:])
+    code = 0
+    try:
+        runpy.run_module(f"repro_torch.{module}", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+    finally:
+        print(LAUNCHES_TAG + json.dumps(_counts()), file=sys.stderr)
+    return code
+
+
+def _cli(step: str, module: str, *args, cwd: Path) -> dict:
+    """Runs one CLI step in a fresh process (``cli_main``); returns its exit
+    code, output, wall seconds and kernel launches."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cli",
+                          module, *map(str, args)], cwd=cwd, capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    tagged = [line for line in run.stderr.splitlines()
+              if line.startswith(LAUNCHES_TAG)]
+    if len(tagged) != 1:
+        print(run.stdout[-4000:] + run.stderr[-8000:], file=sys.stderr)
+        raise RuntimeError(f"phase 13 step {step!r} reported no kernel launches "
+                           f"(exit code {run.returncode})")
+    return {"rc": run.returncode, "stdout": run.stdout, "stderr": run.stderr,
+            "wall_s": wall, "counts": json.loads(tagged[0][len(LAUNCHES_TAG):])}
+
+
+def _ok(res: dict, step: str, rc: int = 0) -> dict:
+    if res["rc"] != rc:
+        print(res["stdout"][-4000:] + res["stderr"][-8000:], file=sys.stderr)
+    _require(res["rc"] == rc, f"phase 13 step {step!r} exits with {rc} "
+             f"(got {res['rc']})")
+    return res
+
+
+def _agreement(path: Path, other: Path, hardware: str) -> dict:
+    """The relative differences |a - b| / b of the points that two DBs,
+    filled by different processes, both hold, and the point that differs
+    most: its op, (phase, toks, reqs, ctx) and both latencies in µs."""
+    with LatencyDB(str(path)) as a, LatencyDB(str(other)) as b:
+        diffs = []
+        for sig in set(a.measured_hashes(hardware)) & set(b.measured_hashes(hardware)):
+            pa, pb = a.measurement_map(sig, hardware), b.measurement_map(sig, hardware)
+            op = a.signature(sig)[0]
+            diffs += [(abs(pa[k] - pb[k]) / pb[k], op, list(k), pa[k], pb[k])
+                      for k in pa.keys() & pb.keys()]
+    _require(diffs, f"{path.name} and {other.name} hold common points")
+    worst = max(diffs)
+    return {"points": len(diffs),
+            "median": float(np.median([d[0] for d in diffs])),
+            "max": float(worst[0]), "worst": list(worst[1:])}
+
+
+def _shared_attn(paths, variant: str) -> dict:
+    """The self_attn signatures of ``variant`` (heads/kv heads/head dim,
+    no window) in the merged DB ``paths[0]``: for each, the configs that use
+    it and the shard DBs ``paths[1:]`` that measured it."""
+    h, kv, d = map(int, variant.split("/"))
+    with LatencyDB(str(paths[0])) as db:
+        sigs = {}
+        for sig, attrs in db.conn.execute(
+                "SELECT hash, attrs FROM signatures WHERE op_name='self_attn'"):
+            a = json.loads(attrs)
+            if (a["n_heads"], a["n_kv_heads"], a["head_dim"], a["window"]) == (
+                    h, kv, d, 0):
+                sigs[sig] = {"configs": sorted(r[0] for r in db.conn.execute(
+                    "SELECT DISTINCT c.model FROM model_operations o JOIN "
+                    "configurations c ON c.id = o.config_id WHERE o.sig_hash=?",
+                    (sig,)))}
+    for sig, info in sigs.items():
+        info["shards"] = []
+        for i, path in enumerate(paths[1:]):
+            with LatencyDB(str(path)) as db:
+                if db.conn.execute("SELECT COUNT(*) FROM measurements WHERE "
+                                   "sig_hash=?", (sig,)).fetchone()[0]:
+                    info["shards"].append(i)
+    return sigs
+
+
+def phase_cli(workdir: Path, cli_args: list, device, *, models, full: bool,
+              shared_variant: str, compare_db: Path) -> dict:
+    """Phase 13: the profile, sweep and optimize CLIs, each step in its own
+    process with ``cli_args`` (the device, hardware and oracle flags; none on
+    the card, whose defaults they are) and its files under ``workdir``.  The
+    points its profile measures are held against those that another process
+    stored in ``compare_db`` (phase 12's)."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    for old in workdir.iterdir():       # a journal left by an earlier run
+        old.unlink()                    # would resume it
+    corpus = ["--models", ",".join(models), "--backends", PROFILE_BACKEND,
+              "--sweep", "quick", *(["--full"] if full else []), *cli_args]
+    steps = {}
+
+    def step(name, module, *args, rc=0):
+        steps[name] = _ok(_cli(name, module, *args, cwd=workdir), name, rc)
+        return steps[name]
+
+    dry = json.loads(step("plan", "profile", "plan", *corpus, "--json", "-")["stdout"])
+    hardware = dry["hardware"]
+    for i in range(2):
+        step(f"shard {i}", "profile", "run", *corpus, "--db", f"shard{i}.sqlite",
+             "--resume", "--shards", 2, "--shard-index", i, "--json",
+             f"shard{i}.json")
+    shard_reports = [json.loads((workdir / f"shard{i}.json").read_text())
+                     for i in range(2)]
+    merged = step("merge", "profile", "merge", *corpus, "--db", "merged.sqlite",
+                  "--resume", "shard0.sqlite", "shard1.sqlite",
+                  "shard0.sqlite.plan-journal", "shard1.sqlite.plan-journal",
+                  "--json", "merge.json")
+    _require("exact, all shards merged" in merged["stdout"],
+             "the merge reports exact, all shards merged")
+    resume = json.loads(step("resume", "profile", "run", *corpus, "--db",
+                             "merged.sqlite", "--resume", "--json", "-")["stdout"])
+    _require(resume["measured"] == 0 and resume["rows_written"] == 0,
+             f"a resumed run on the merged DB measures 0 ({resume['measured']})")
+    step("audit", "profile", "audit", "--db", "merged.sqlite")
+    with LatencyDB(str(workdir / "merged.sqlite")) as db:
+        rows = db.stats()["measurements"]
+        # the plan's accounting: each point at the sweep's repeats
+        spent = QUICK_SWEEP.repeats * sum(
+            sum(db.measurement_map(sig, hardware).values())
+            for sig in db.measured_hashes(hardware)) / 1e6
+    naive = resume["coverage"]["est_naive_s"]
+    _require(rows == dry["plan_points"] == sum(r["rows_written"]
+                                               for r in shard_reports),
+             f"merged rows {rows} == the dry run's points {dry['plan_points']} "
+             "== the shards' rows")
+    shared = _shared_attn([workdir / "merged.sqlite", workdir / "shard0.sqlite",
+                           workdir / "shard1.sqlite"], shared_variant)
+    names = sorted(m["model"] for m in dry["models"])
+    _require(len(shared) == 1 and all(v["configs"] == names and len(v["shards"]) == 1
+                                      for v in shared.values()),
+             f"the {shared_variant} self_attn task is measured once and shared "
+             f"by {names} ({shared})")
+    agree = _agreement(workdir / "merged.sqlite", compare_db, hardware)
+    _require(agree["median"] <= AGREE_LIMIT,
+             f"the points of two processes agree: median relative difference "
+             f"{agree['median']:.4f} <= {AGREE_LIMIT}")
+    execute = {"shard 0": shard_reports[0]["elapsed_s"],
+               "shard 1": shard_reports[1]["elapsed_s"],
+               "resume": resume["elapsed_s"]}
+    print(f"[13 cli] profile: dry run of {', '.join(names)} on {hardware}: "
+          f"{dry['plan_tasks']} tasks of {dry['naive_tasks']} "
+          f"({100 * dry['dedup_frac']:.1f} % dedup), {dry['plan_points']} points; "
+          f"2 shards measured {shard_reports[0]['measured']} + "
+          f"{shard_reports[1]['measured']} tasks, merged {rows} rows (exact), "
+          f"resume measured 0, audit clean; the {shared_variant} self_attn task "
+          f"shared by both models, measured by one shard; {_card(device)}")
+    print("  per process: " + "; ".join(
+        f"{name} {res['wall_s']:.1f} s wall"
+        + (f" ({execute[name]:.2f} s executing, {res['wall_s'] - execute[name]:.1f}"
+           " s start-up and plan build)" if name in execute else "")
+        for name, res in steps.items()))
+    print(f"  profiling GPU-seconds at the quick sweep's {QUICK_SWEEP.repeats} "
+          f"repeats a point: spent {spent:.4f} s, saved {naive - spent:.4f} s of "
+          f"{naive:.4f} s that per-model profiling would spend (the resume's "
+          "coverage)")
+    floor = f"{launch_floor(device) * 1e6:.3f} us" if device.type == "cuda" else "none"
+    op, key, us, other_us = agree["worst"]
+    print(f"  the shards' points against {compare_db.name}'s, filled by another "
+          f"process: {agree['points']} in common, relative difference median "
+          f"{100 * agree['median']:.3f} %, max {100 * agree['max']:.3f} % "
+          f"({op} at {key}: {us:.3f} against {other_us:.3f} us); cuda_events' "
+          f"launch floor in this process {floor}")
+
+    common = ["--db", "merged.sqlite", "--backends", PROFILE_BACKEND, *cli_args]
+    swept = json.loads(step("sweep", "sweep", *common, "--eval-workers", 2,
+                            "--json", "-")["stdout"])
+    summary = swept["summary"]
+    _require(summary["failed"] == 0 and summary.get("workers") == 2,
+             f"the sweep evaluates every scenario on 2 workers ({summary})")
+    diff = json.loads(step("sweep oracle", "sweep", *common, "--compare-latency",
+                           "oracle", "--json", "-")["stdout"])["calibration_diff"]
+    agg = diff["aggregate"]
+    print(f"[13 cli] sweep: {summary['scenarios']} scenarios on "
+          f"{summary['workers']} workers, failed 0 ({steps['sweep']['wall_s']:.1f} s "
+          f"wall, profiling the smoke configs included); frontier: "
+          + ", ".join(swept["frontier"]))
+    print("  dooly vs oracle over the corpus: " + "; ".join(
+        f"{m} mean {100 * a['mean_abs_rel_err']:.3f} %, max "
+        f"{100 * a['max_abs_rel_err']:.3f} %" for m, a in agg.items()))
+    plan = json.loads(step("optimize", "optimize", *common, "--json", "-")["stdout"])
+    rec = plan["recommendation"]
+    failed = [c["scenario"] for c in plan["candidates"]
+              if c["reason"].startswith("exact tier failed")]
+    _require(rec is not None and not failed
+             and plan["counters"]["exact_tier"]["failed"] == 0,
+             f"the optimizer recommends a candidate with no failed scenario "
+             f"({failed})")
+    print(f"[13 cli] optimize: {plan['counters']['candidates']} candidates, "
+          f"{plan['counters']['pruned']} pruned, {plan['counters']['confirmed']} "
+          f"confirmed, {plan['counters']['feasible']} feasible; recommended "
+          f"{rec['scenario']} x{rec['replicas']} at cost {rec['cost']:.6g} "
+          f"(TTFT p90 {rec['exact']['ttft_p90']:.6g} s, TPOT p90 "
+          f"{rec['exact']['tpot_p90']:.6g} s, makespan "
+          f"{rec['exact']['makespan']:.6g} s)")
+    launches = [sum(res["counts"][i] for res in steps.values()) for i in range(4)]
+    print(f"  kernel launches over the CLI processes (decode, flash fwd, flash "
+          f"bwd, scan): {tuple(launches)}")
+    return {"dry": dry, "rows": rows, "spent_s": spent, "saved_s": naive - spent,
+            "agreement": agree,
+            "wall_s": {k: v["wall_s"] for k, v in steps.items()},
+            "execute_s": execute, "sweep": summary, "compare": agg,
+            "recommendation": rec, "decode_launches": launches[0],
+            "flash_launches": launches[1]}
+
+
 def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                  train: dict, mamba_serving: dict, mamba_prefill: dict,
-                 loop: dict) -> dict:
+                 loop: dict, cli: dict) -> dict:
     """Launches are counted on the main paths: decode while serving llama3
-    (one run) and granite-20b and over phase 12's loop, the flash forward
-    over the prefill, the train steps and the loop, the backward over the
-    train steps, the scan while serving falcon-mamba (one run) and over its
-    prefill."""
+    (one run) and granite-20b, over phase 12's loop and sweep scoring and
+    over phase 13's CLI processes, the flash forward over the prefill, the
+    train steps, the loop and the CLIs, the backward over the train steps,
+    the scan while serving falcon-mamba (one run) and over its prefill."""
     launches = {"decode_attention": serving["decode_launches"]
-                + granite["decode_launches"] + loop["decode_launches"],
+                + granite["decode_launches"] + loop["decode_launches"]
+                + cli["decode_launches"],
                 "flash_attention_fwd": prefill["flash_launches"]
-                + train["flash_fwd_launches"] + loop["flash_launches"],
+                + train["flash_fwd_launches"] + loop["flash_launches"]
+                + cli["flash_launches"],
                 "flash_attention_bwd": train["flash_bwd_launches"],
                 "mamba_scan": mamba_serving["scan_launches"]
                 + mamba_prefill["scan_launches"]}
-    times = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    times = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library_device_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
@@ -1528,6 +1911,8 @@ def _release(device):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cli"]:
+        return cli_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1553,9 +1938,11 @@ def main() -> int:
                  device)
     _release(device)
     loop = phase_profile_simulate_process()
-    print(f"[13] all phases passed in {time.perf_counter() - t0:.1f} s")
+    cli = phase_cli(CLI_DIR, [], device, models=PROFILE_MODELS, full=True,
+                    shared_variant=SHARED_VARIANT, compare_db=PHASE12_DB)
+    print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill, loop)
+                 mamba_prefill, loop, cli)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

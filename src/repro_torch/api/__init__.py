@@ -10,13 +10,16 @@ predict -> simulate loop, the counterpart of ``repro.api``:
         sim = store.simulator(cfg, sched_config=sched, max_seq=2048,
                               backend="kernel")
         print(sim.run(requests)["makespan"])
+        table = store.sweep().run(scenarios).table()    # config search
+        cap = store.optimize(spec)         # SLO-driven capacity search
 
 The latency source is a constructor argument: any registered
 :class:`LatencyBackend` (``"dooly"`` regression fits, ``"roofline"``
 analytic, ``"oracle"`` raw-measurement replay) drops into `DoolySim`.
-`DoolySim` and the workload helpers are re-exported lazily (PEP 562), as
-the reference does.  The reference's ``sweep`` and ``optimize`` surfaces
-come with the port's ``sweep/`` and ``optimize/``.
+`DoolySim`, the sweep and optimizer types and the workload helpers are
+re-exported lazily (PEP 562), as the reference does: they live downstream of
+the backend seam, and importing them eagerly would cycle.  ``__all__`` is
+the reference's, name for name.
 """
 from repro_torch.api.backends import (DoolyBackend,  # noqa: F401
                                       FallbackBackend, LatencyBackend,
@@ -48,11 +51,19 @@ __all__ = [
     "DoolySim", "predict_scenarios",
     "latency_dependence", "recommend_engine", "run_events",
     "StaggeredTrace",
+    "Sweep", "SweepResult", "ScenarioFailure", "Scenario", "SchedSpec",
+    "WorkloadSpec", "expand_grid",
     # workload subsystem (trace ingestion / sessions / traffic shapes)
     "TraceRow", "TraceError", "load_trace", "save_trace", "trace_key",
     "time_warp", "resample_trace", "truncate_trace",
     "to_requests", "synthetic_sessions",
     "ShapeSpec", "parse_shape", "shaped_arrivals", "warp_times",
+    # capacity optimizer (analytic tier -> staged search -> autoscale)
+    "SLO", "OptimizeSpec", "CandidateReport", "CapacityPlan",
+    "Optimizer", "optimize",
+    "AnalyticEstimate", "WorkloadStats", "analytic_estimate",
+    "ANALYTIC_TPOT_BOUND", "ANALYTIC_MAKESPAN_BOUND",
+    "AutoscalePolicy", "AutoscaleReport", "simulate_autoscale",
 ]
 
 _LAZY = {
@@ -62,6 +73,13 @@ _LAZY = {
     "recommend_engine": ("repro_torch.sim.events", "recommend_engine"),
     "run_events": ("repro_torch.sim.events", "run_events"),
     "StaggeredTrace": ("repro_torch.sim.events", "StaggeredTrace"),
+    "Sweep": ("repro_torch.sweep.runner", "Sweep"),
+    "SweepResult": ("repro_torch.sweep.runner", "SweepResult"),
+    "ScenarioFailure": ("repro_torch.sweep.runner", "ScenarioFailure"),
+    "Scenario": ("repro_torch.sweep.grid", "Scenario"),
+    "SchedSpec": ("repro_torch.sweep.grid", "SchedSpec"),
+    "WorkloadSpec": ("repro_torch.sweep.grid", "WorkloadSpec"),
+    "expand_grid": ("repro_torch.sweep.grid", "expand_grid"),
     "TraceRow": ("repro_torch.workload", "TraceRow"),
     "TraceError": ("repro_torch.workload", "TraceError"),
     "load_trace": ("repro_torch.workload", "load_trace"),
@@ -76,6 +94,21 @@ _LAZY = {
     "parse_shape": ("repro_torch.workload", "parse_shape"),
     "shaped_arrivals": ("repro_torch.workload", "shaped_arrivals"),
     "warp_times": ("repro_torch.workload", "warp_times"),
+    "SLO": ("repro_torch.optimize", "SLO"),
+    "OptimizeSpec": ("repro_torch.optimize", "OptimizeSpec"),
+    "CandidateReport": ("repro_torch.optimize", "CandidateReport"),
+    "CapacityPlan": ("repro_torch.optimize", "CapacityPlan"),
+    "Optimizer": ("repro_torch.optimize", "Optimizer"),
+    "optimize": ("repro_torch.optimize", "optimize"),
+    "AnalyticEstimate": ("repro_torch.optimize", "AnalyticEstimate"),
+    "WorkloadStats": ("repro_torch.optimize", "WorkloadStats"),
+    "analytic_estimate": ("repro_torch.optimize", "analytic_estimate"),
+    "ANALYTIC_TPOT_BOUND": ("repro_torch.optimize", "ANALYTIC_TPOT_BOUND"),
+    "ANALYTIC_MAKESPAN_BOUND": ("repro_torch.optimize",
+                                "ANALYTIC_MAKESPAN_BOUND"),
+    "AutoscalePolicy": ("repro_torch.optimize", "AutoscalePolicy"),
+    "AutoscaleReport": ("repro_torch.optimize", "AutoscaleReport"),
+    "simulate_autoscale": ("repro_torch.optimize", "simulate_autoscale"),
 }
 
 

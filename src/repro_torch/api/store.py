@@ -3,12 +3,13 @@
 Counterpart of ``repro.api.store``.  The store profiles on its ``device``
 (the card unless the caller passes ``device="cpu"``) with the
 ``cuda_events`` oracle and the card's hardware tag by default; without a
-card those defaults raise.  The reference's ``sweep`` and ``optimize``
-consumers come with the port's ``sweep/`` and ``optimize/``.
+card those defaults raise.  ``sweep()`` and ``optimize()`` bind the
+configuration-search consumers (``repro_torch.sweep``,
+``repro_torch.optimize``) to the store, as the reference's do.
 
 Before this facade existed, a caller had to wire `LatencyDB`,
-`DoolyProf`, `LatencyModel.shared` and `DoolySim` by hand
-in the right order; the per-(db, hardware) fit cache hid inside
+`DoolyProf`, `LatencyModel.shared`, `DoolySim`, and `repro_torch.sweep`
+by hand in the right order; the per-(db, hardware) fit cache hid inside
 `LatencyModel.shared` with no owner and no lifecycle.  `ProfileStore`
 collects all of it behind one handle:
 
@@ -26,7 +27,7 @@ collects all of it behind one handle:
   (``LatencyModel.refresh``) keeps it coherent with measurement writes;
 * **backends** — ``backend(name, cfg, ...)`` constructs any registered
   :class:`~repro_torch.api.backends.LatencyBackend` against this store, and
-  ``simulator(...)`` builds the consumer layer on top.
+  ``simulator(...)``/``sweep(...)`` build the consumer layers on top.
 
 Typical session::
 
@@ -273,6 +274,26 @@ class ProfileStore:
             latency=self.backend(latency, cfg, sched_config=sched_config,
                                  max_seq=max_seq, backend=backend, tp=tp,
                                  hardware=hardware, **kw))
+
+    def sweep(self, **kw):
+        """A :class:`repro_torch.sweep.Sweep` bound to this store."""
+        from repro_torch.sweep.runner import Sweep
+        return Sweep(self, **kw)
+
+    def optimize(self, spec, *, workers: int = 1,
+                 oversubscribe: bool = False, profile: bool = True,
+                 quiet: bool = True, **kw):
+        """Run the staged SLO-driven capacity search for ``spec`` (an
+        :class:`repro_torch.optimize.OptimizeSpec`) and return the resulting
+        :class:`repro_torch.optimize.CapacityPlan`.
+
+        Extra keyword arguments configure the underlying
+        :class:`repro_torch.optimize.Optimizer` (``latency=``,
+        ``analytic_latency=``, ``engine=``, ``hw_cost=`` ...)."""
+        from repro_torch.optimize.search import Optimizer
+        return Optimizer(self, **kw).run(
+            spec, workers=workers, oversubscribe=oversubscribe,
+            profile=profile, quiet=quiet)
 
     def stats(self) -> Dict[str, int]:
         return self.db.stats()

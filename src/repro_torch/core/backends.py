@@ -8,8 +8,12 @@ Counterpart of ``repro.core.backends``:
   a side stream, one call is captured in a ``torch.cuda.CUDAGraph``, its
   replay is timed between two CUDA events ``repeats`` times, and the
   median less the launch floor (the same measurement of a graph holding
-  one trivial kernel) is returned.  Host launch gaps between the call's
-  kernels are therefore not timed.  A call that cannot be captured (a host
+  one trivial kernel) is returned.  Each timed replay is queued behind a
+  busy kernel (``torch.cuda._sleep``) that keeps the card working while
+  the host queues the start event, the replay and the end event, so the
+  host's launch latency, which varies from process to process, is not
+  timed: neither between the call's kernels nor before the first, and the
+  floor is the card's own.  A call that cannot be captured (a host
   sync, a data-dependent shape) raises; there is no eager fallback.  A
   kernel wrapper's launch counter moves on the warm-up calls and once at
   capture, not on replays.  It runs on the card only.
@@ -47,10 +51,17 @@ def _median(xs) -> float:
     return xs[len(xs) // 2]
 
 
+#: cycles of the busy kernel queued before each timed replay (about 0.5 ms
+#: on an H100), far longer than the host takes to queue the replay and its
+#: two events
+BUSY_CYCLES = 1_000_000
+
+
 def _graph_times(fn: Callable, args: Sequence[Any], repeats: int, warmup: int,
                  device: torch.device) -> list:
     """Seconds of each of ``repeats`` replays of a CUDA graph of one
-    ``fn(*args)``, each between two CUDA events."""
+    ``fn(*args)``, each between two CUDA events queued behind a busy
+    kernel."""
     name = getattr(fn, "__qualname__", repr(fn))
     with torch.cuda.device(device):
         side = torch.cuda.Stream()
@@ -71,6 +82,7 @@ def _graph_times(fn: Callable, args: Sequence[Any], repeats: int, warmup: int,
         pairs = [(torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True)) for _ in range(repeats)]
         for start, end in pairs:
+            torch.cuda._sleep(BUSY_CYCLES)
             start.record()
             graph.replay()
             end.record()

@@ -23,7 +23,8 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+mains = sorted(n for n in names if n.endswith(".__main__"))
+print(len(names), ",".join(mains), bad)
 sys.exit(1 if bad else 0)
 """
 
@@ -34,12 +35,15 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         text=True, timeout=120,
         env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT / "src")})
     assert run.returncode == 0, run.stdout + run.stderr
-    n_modules, bad = run.stdout.split(maxsplit=1)
+    n_modules, mains, bad = run.stdout.split(maxsplit=2)
     # train, parallel, models.mamba, kernels.mamba_scan, the falcon-mamba
-    # config, and the profile-then-simulate loop (core.{signature,database,
+    # config, the profile-then-simulate loop (core.{signature,database,
     # latency_model,journal,supervisor,profiler,plan}, parallel.roofline,
-    # sim, workload, api) included
-    assert int(n_modules) >= 62 and bad.strip() == "[]"
+    # sim, workload, api) and the configuration-search surface (_cli,
+    # profile, sweep, optimize, each CLI's __main__) included
+    assert int(n_modules) >= 74 and bad.strip() == "[]"
+    assert mains.split(",") == [f"repro_torch.{m}.__main__"
+                                for m in ("optimize", "profile", "sweep")]
 
 
 def _imported_roots(path: Path):

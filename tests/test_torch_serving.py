@@ -38,6 +38,8 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
 SCHED = dict(max_num_seqs=4, max_batch_tokens=64, chunk_size=32)
+#: chip_smoke phase 13's CLI flags on the CPU (the card's are the defaults)
+CLI_ARGS = ["--device", "cpu", "--hardware", "cpu", "--oracle", "h100_analytical"]
 
 
 @pytest.fixture(scope="module")
@@ -229,7 +231,7 @@ def _chip_smoke():
     return mod
 
 
-def test_chip_smoke_phases_on_cpu(capsys):
+def test_chip_smoke_phases_on_cpu(capsys, tmp_path):
     cs = _chip_smoke()
     cfg, cpu = get_smoke_config("llama3-8b"), torch.device("cpu")
     mcfg, gcfg = get_smoke_config(cs.MAMBA), get_smoke_config(cs.GRANITE)
@@ -249,24 +251,32 @@ def test_chip_smoke_phases_on_cpu(capsys):
         hardware="cpu", sweep=SweepConfig(toks=(8, 16, 32), reqs=(1, 4),
                                           ctx=(64, 256),
                                           op_points=((8, 1), (16, 1), (32, 1),
-                                                     (1, 4)), repeats=20),
+                                                     (64, 1), (1, 4)),
+                                          repeats=20),
         sched=SchedulerConfig(**SCHED), max_seq=256,
         calibration=dict(n=4, rate=1.0, prompt_len=64, out_len=8, seed=9),
-        score=dict(n=12, rate=4.0, seed=4, scale=0.05), shared_variant="4/2/32")
+        score=dict(n=12, rate=4.0, seed=4, scale=0.05), shared_variant="4/2/32",
+        scoring=dict(seqs=(2, 4), tokens=(32, 64), chunk=32, served=(2, 32, 32)),
+        config_fn=get_smoke_config, db=str(tmp_path / "phase12.sqlite"))
+    cli = cs.phase_cli(tmp_path / "cli", CLI_ARGS, cpu, models=cs.PROFILE_MODELS,
+                       full=False, shared_variant="4/2/32",
+                       compare_db=tmp_path / "phase12.sqlite")
     line = cs.kernels_line(kernels, serving, granite, prefill, train,
-                           mamba_serving, mamba_prefill, loop)
+                           mamba_serving, mamba_prefill, loop, cli)
     assert [k["name"] for k in line["kernels"]] == [
         "decode_attention", "flash_attention_fwd", "flash_attention_bwd",
         "mamba_scan"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "timed"}
+            "library_device_ms", "timed"}
     for k in line["kernels"]:
         assert set(k) == keys and k["launches"] == 0 and k["max_abs_err"] == 0
         assert k["device_ms"] is None           # no profiler time off the card
         assert all(set(r) == keys & {"ms", "device_ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms"}
+                                     "bound_by", "library_ms",
+                                     "library_device_ms"}
                    for r in k["timed"].values())
+        assert k["library_device_ms"] is None
         assert (ROOT / k["source"]).is_file()
         path, line_no = k["replaces"].split(":")
         assert "pallas_call" in "".join(
@@ -314,8 +324,24 @@ def test_chip_smoke_phases_on_cpu(capsys):
     assert loop["sim"]["makespan_mape"] <= cs.MAKESPAN_MAPE_LIMIT
     assert len(loop["engine_makespans_s"]) == 2 and loop["decode_launches"] == 0
     assert loop["spent_s"][0] > 0 and loop["saved_s"][1] > 0
+    assert loop["calls_per_step"] > 0 and loop["launch_floor_us"] is None
     assert "[12 profile->simulate]" in out and "dedup:" in out
     assert "engine self-noise" in out and "DoolySim vs the engine" in out
+    # phase 12's sweep: four scenarios, none failed, the served one scored
+    # bare and calibrated
+    swept = loop["sweep"]
+    assert swept["scenarios"] == 4 and swept["summary"]["failed"] == 0
+    assert swept["served"] == "s2/b32/c32" and swept["engine_makespan_s"] > 0
+    assert all(np.isfinite(v) for c in swept["mape"].values() for v in c.values())
+    assert "[12 sweep]" in out and "sweep's DoolySim calibrated" in out
+    # phase 13: the CLI round trip measured every planned point once
+    assert cli["rows"] == cli["dry"]["plan_points"] > 0
+    assert cli["sweep"]["workers"] == 2 and cli["sweep"]["scenarios"] == 32
+    assert cli["recommendation"] is not None and cli["decode_launches"] == 0
+    assert cli["spent_s"] > 0 and cli["saved_s"] > 0
+    # h100_analytical prices a point alike in every process
+    assert cli["agreement"]["points"] > 0 and cli["agreement"]["max"] == 0
+    assert "[13 cli] profile" in out and "[13 cli] optimize" in out
 
 
 def test_chip_smoke_train_counts_remat_launches(monkeypatch):
