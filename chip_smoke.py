@@ -5,9 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's main paths for llama3-8b, falcon-mamba-7b and
-granite-20b at full width in bf16 (random weights from seed 0) and checks
-them, one line per phase:
+It drives the port's main paths for llama3-8b, falcon-mamba-7b,
+granite-20b, minicpm3-4b (MLA), olmoe-1b-7b (MoE) and hymba-1.5b (hybrid)
+at full width in bf16 (random weights from seed 0) and checks them, one
+line per phase:
 
 1. device  — the card's name and count, its name and power limit from
              nvidia-smi; TF32 off for matmuls and convolutions.
@@ -30,7 +31,11 @@ them, one line per phase:
              (1 request, ctx 2048) oracle point, and at granite-20b's
              serving shape (B=8, KV=1, a GQA group of 48 run as two slices
              of 32 rows, D=128), with the K/V bytes the second slice reads
-             again; the fp32 cases include groups of 48 and 40.
+             again; the fp32 cases include groups of 48 and 40.  Decode
+             is also timed at olmoe-1b-7b's G = 1 (KV 16, D 128) and
+             hymba-1.5b's G = 5 (KV 5, D 64), the flash forward at
+             hymba's 25/5 heads, D 64, window 1024 (S 1024, where the
+             window cuts no key, so SDPA computes the same function).
 3b. scan   — the selective-scan kernel against its plain version: the
              kernel-test cases in fp32 with h0 (5e-5) and falcon-mamba's
              shapes in bf16 (2e-2; prefill B=1 at S=256 and 1024, decode
@@ -38,7 +43,8 @@ them, one line per phase:
              device times beside the least time the card could take (bytes
              at 3.35 TB/s, fp32 flops at 67 TFLOP/s, one exp per state
              entry and step at 16 per clock per SM); no single PyTorch call
-             computes a selective scan, so it has no library yardstick.
+             computes a selective scan, so it has no library yardstick;
+             also at hymba-1.5b's Di = 3200 (prefill S=1024, decode B=8).
 4. serving — the Engine serves 8 requests (prompts of 128-1024 tokens, 32
              new tokens each) through the decode kernel, twice, replaying a
              CUDA graph per step (captured outside the clock); decode-kernel
@@ -118,7 +124,10 @@ them, one line per phase:
              the sweep's DoolySim, bare and with phase 12's calibration
              terms, is scored against it by TTFT, TPOT and makespan MAPE
              beside the paper's bars; it fails on a failed scenario or a
-             MAPE that is not finite.
+             MAPE that is not finite.  Last, olmoe-1b-7b (planned with the
+             first two, before any timing) is profiled into the same DB,
+             calibrated and scored the same way: its TTFT, TPOT and
+             makespan MAPE beside the paper's bars.
 13. cli     — Dooly's configuration-search surface through its command
              lines, each step a fresh process that runs the CLI module as
              ``python -m repro_torch.<cli>`` does (launched through this
@@ -142,6 +151,25 @@ them, one line per phase:
              ``--compare-latency oracle`` (its corpus-wide errors printed)
              and ``optimize`` at its defaults (a recommendation, no failed
              scenario).
+14. families — minicpm3-4b (MLA, 62 layers), olmoe-1b-7b (MoE, 64
+             experts top-8) and hymba-1.5b (hybrid: GQA 25/5/64 with window
+             1024 beside Mamba heads of Di 3200), each at full width and
+             depth, released before the next (``[14 mla]``, ``[14 moe]``,
+             ``[14 hybrid]``): the Engine serves the phase-4 requests twice
+             from CUDA graphs, with the kernel launches each family must
+             make (decode per GQA layer and decode iteration, the scan per
+             mixer and chunk or decode iteration; MLA and MoE none of their
+             own), both makespans, their ratio, the median decode iteration
+             and the idle share; a graph-replayed decode step against the
+             eager path (cosine >= 0.999); the ``mla_attn``, ``moe``, or
+             ``self_attn`` (window 1024) and ``mamba`` context points, two
+             timings each by cuda_events; for hymba a 1024-token
+             Model.prefill through the flash forward and the scan (float32
+             logits against the plain path, cosine >= 0.99).  ``[14 plan]``:
+             llama3-8b, command-r7b and the three profiled at full width in
+             one CLI process (quick sweep) on a copy of phase 13's merged
+             DB: tasks, shared tasks, tasks in the DB and measured, task
+             dedup, and the GPU-seconds spent and saved.
 A JSON line then lists every kernel with its launches on the main paths,
 its largest error against its plain version, and its times.
 ``python3 chip_smoke.py --profile-simulate`` runs phase 12 alone, and
@@ -159,6 +187,7 @@ import json
 import math
 import re
 import runpy
+import shutil
 import subprocess
 import sys
 import time
@@ -190,7 +219,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.serving import (Engine, Request, SchedulerConfig,  # noqa: E402
-                                 bucket_chunk, build_context)
+                                 bucket_chunk, build_context, phases_for)
 from repro_torch.serving.scheduler import IterationPlan  # noqa: E402
 from repro_torch.sim import metrics as M  # noqa: E402
 from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
@@ -242,6 +271,14 @@ GRANITE = "granite-20b"
 GRANITE_POINT = (8, 2048)                                      # (reqs, ctx)
 MAMBA_PREFILL_POINTS = [(256, 1), (1024, 1)]                   # (toks, reqs)
 MAMBA_DECODE_REQS = (1, 8)
+#: phase 14: the MLA, MoE and hybrid families at full width and depth; the
+#: context points (prefill toks x reqs, decode reqs x ctx), the plan of five
+#: models at the CLI's quick sweep, against a copy of phase 13's merged DB
+MLA, MOE, HYBRID = "minicpm3-4b", "olmoe-1b-7b", "hymba-1.5b"
+FAMILY_PREFILL_TOKS = {"mla_attn": (64, 256), "moe": (8, 64, 256),
+                       "self_attn": (64, 256), "mamba": (64, 256)}
+FAMILY_REQS, FAMILY_CTX = (1, 8), (512, 2048)
+PLAN_MODELS = ("llama3-8b", "command-r7b", MLA, MOE, HYBRID)
 #: phase 12: the sweep brackets every point the engine asks for (chunk
 #: buckets 8-256 at one request against the full 2048-slot cache, the decode
 #: batch of 8 rows at ctx 2048); 20 repeats, as cuda_events replays each
@@ -267,6 +304,7 @@ LAUNCHES_TAG = "cli kernel launches: "
 #: phase 12's DB, against which phase 13 holds the points its CLI processes
 #: measure, and the most their median relative difference may be
 PHASE12_DB = CLI_DIR.parent / "phase12.sqlite"
+PHASE14_DB = CLI_DIR.parent / "phase14.sqlite"
 AGREE_LIMIT = 0.10
 
 #: the libraries whose bf16 path runs on the tensor cores, and the SASS
@@ -343,20 +381,26 @@ def _device_ms(fn, device, name: str = "", reps: int = 10):
     of its device activity, kernels, copies and fills, without a name) by
     torch.profiler, calls back to back with the L2 cache warm: the card's own
     time, without the host's launch path and the cold cache that
-    ``_time_ms`` includes.  None off the card."""
+    ``_time_ms`` includes.  None off the card, or where three sessions saw
+    no device time."""
     if device.type != "cuda":
         return None
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize(device)
-    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
-             if (name in e.key if name else e.device_type == DeviceType.CUDA))
-    return us / reps / 1e3
+    # a profiler session can come back without device events (as the
+    # fingerprints' can, core/signature.py): take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+                 if (name in e.key if name else e.device_type == DeviceType.CUDA))
+        if us > 0:
+            return us / reps / 1e3
+    return None
 
 
 def _sdpa(q, k, v, **kw):
@@ -539,11 +583,13 @@ def _flash_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
                                       device, "flash_")
         res["plain_ms"] = _time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
                                    device)
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        res["library_ms"] = _time_ms(lambda: _sdpa(qh, kh, vh, is_causal=causal),
-                                     device)
-        res["library_device_ms"] = _device_ms(
-            lambda: _sdpa(qh, kh, vh, is_causal=causal), device)
+        res["library_ms"] = res["library_device_ms"] = None
+        if not window or window >= sk:      # SDPA has no window; none cut here
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            res["library_ms"] = _time_ms(
+                lambda: _sdpa(qh, kh, vh, is_causal=causal), device)
+            res["library_device_ms"] = _device_ms(
+                lambda: _sdpa(qh, kh, vh, is_causal=causal), device)
     return res
 
 
@@ -601,11 +647,13 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
     return res
 
 
-def phase_kernels(cfg, device, gqa_cfg=None) -> dict:
+def phase_kernels(cfg, device, gqa_cfg=None, family_cfgs=()) -> dict:
     """Each kernel against its plain version; returns, per kernel, the
     largest error over all cases and the main path's times.  Decode attention
     is also timed at ``gqa_cfg``'s serving shape (default granite-20b: a GQA
-    group of 48, run as two slices of the group)."""
+    group of 48, run as two slices of the group) and at the serving shape
+    of each attention config of ``family_cfgs``; the flash forward also at
+    the prefill shape of each of them with a sliding window."""
     gqa_cfg = gqa_cfg or get_config(GRANITE)
     rng = np.random.default_rng(0)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -646,6 +694,26 @@ def phase_kernels(cfg, device, gqa_cfg=None) -> dict:
         f"B={b} random lengths": dict(main["decode_attention"]),
         f"B=1 full ctx {MAX_SEQ}": full,
         f"{gqa_cfg.name} B={b} G={gg} random lengths": gqa}
+    main["flash_attention_fwd"]["timed"] = {}
+    for fc in family_cfgs:
+        if fc.attn_type != "gqa":
+            continue
+        fkv, fd = fc.n_kv_heads, fc.resolved_head_dim
+        fg = fc.n_heads // fkv
+        res = _decode_case(rng, b, fkv, fg, MAX_SEQ, fd, 0, bf16, device, True)
+        errs["decode_attention"].append(res)
+        main["decode_attention"]["timed"][
+            f"{fc.name} B={b} G={fg} D={fd} random lengths"] = res
+        if fc.sliding_window:
+            main["flash_attention_fwd"]["timed"].setdefault(
+                f"B=1 S={PREFILL_LEN} {cfg.n_heads}/{kv} heads D={hd}",
+                dict(main["flash_attention_fwd"]))
+            res = _flash_case(rng, 1, PREFILL_LEN, PREFILL_LEN, fc.n_heads, fkv,
+                              fd, True, fc.sliding_window, bf16, device, True)
+            errs["flash_attention_fwd"].append(res)
+            main["flash_attention_fwd"]["timed"][
+                f"{fc.name} B=1 S={PREFILL_LEN} {fc.n_heads}/{fkv} heads D={fd} "
+                f"window {fc.sliding_window}"] = res
     errs["flash_attention_fwd"].append(_flash_case(
         rng, 1, PREFILL_LEN, PREFILL_LEN, cfg.n_heads, kv, hd, True, WINDOW,
         bf16, device, False))
@@ -670,10 +738,11 @@ def phase_kernels(cfg, device, gqa_cfg=None) -> dict:
             reread = (f"; slices re-read {r['reread_bytes'] / 2**20:.1f} MiB of "
                       "K/V (from L2 when they run side by side)"
                       if r.get("reread_bytes") else "")
+            library = ("none" if r["library_ms"] is None else
+                       f"{r['library_ms']:.4f} ms{_dev(r, 'library_')}")
             print(f"  {shape}: kernel {r['ms']:.4f} ms{_dev(r)}, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
-                  f"{_dev(r, 'library_')}, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}){reread}")
+                  f"{r['plain_ms']:.4f} ms, library {library}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}){reread}")
     return main
 
 
@@ -724,9 +793,10 @@ def _scan_case(rng, b, s, di, n, dtype, device, *, h0: bool, timed: bool,
     return res
 
 
-def phase_scan(cfg, device) -> dict:
+def phase_scan(cfg, device, family_cfgs=()) -> dict:
     """The scan kernel against its plain version (``cfg``: the Mamba
-    model); returns ``{"mamba_scan": ...}`` with the largest error over all
+    model; ``family_cfgs``: more configs with SSM state, timed at their own
+    width); returns ``{"mamba_scan": ...}`` with the largest error over all
     cases and the times of the 1024-token prefill, plus the other timed
     shapes under ``"timed"``."""
     rng = np.random.default_rng(0)
@@ -740,6 +810,14 @@ def phase_scan(cfg, device) -> dict:
     timed[f"decode B={SCHED.max_num_seqs} S=1"] = _scan_case(
         rng, SCHED.max_num_seqs, 1, di, n, bf16, device, h0=True, timed=True,
         dt_rank=dtr)
+    for fc in family_cfgs:
+        fdi, fn, fr = fc.ssm_d_inner, fc.ssm_state, fc.resolved_dt_rank
+        timed[f"{fc.name} prefill B=1 S={PREFILL_LEN} Di={fdi}"] = _scan_case(
+            rng, 1, PREFILL_LEN, fdi, fn, bf16, device, h0=False, timed=True,
+            dt_rank=fr)
+        timed[f"{fc.name} decode B={SCHED.max_num_seqs} S=1 Di={fdi}"] = _scan_case(
+            rng, SCHED.max_num_seqs, 1, fdi, fn, bf16, device, h0=True,
+            timed=True, dt_rank=fr)
     main = dict(timed[f"prefill B=1 S={max(SCAN_PREFILL_LENS)}"])
     main["max_abs_err"] = max(errs + [t["max_abs_err"] for t in timed.values()])
     main["timed"] = timed
@@ -836,6 +914,7 @@ def _serve(cfg, device, runs: int = 2) -> dict:
             "makespan": engine.clock, "wall": wall, "counts": counts,
             "iterations": len(engine.records),
             "decode_iters": sum(1 for r in engine.records if r.n_decodes),
+            "decode_ms": _decode_ms(engine.records),
             "ttft": [r.first_token_t - r.arrival for r in requests],
             "tpot": [(r.finish_t - r.first_token_t) / (r.generated - 1)
                      for r in requests]})
@@ -1345,6 +1424,243 @@ def phase_tracer(pairs, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MLA, MoE and hybrid families
+# ---------------------------------------------------------------------------
+
+def _graph_vs_eager(engine, device):
+    """One decode step on the engine's final cache, replayed from its decode
+    graph and run eagerly (the kernel backend), each on the same cache:
+    the least cosine over rows of the logits (>= 0.999).  None off the
+    card, where the engine has no graphs."""
+    if device.type != "cuda":
+        return None
+    saved = [{k: t.clone() for k, t in c.items()} for c in engine.cache]
+
+    def restore():
+        for c, kept in zip(engine.cache, saved):
+            for k, t in c.items():
+                t.copy_(kept[k])
+    toks = [1] * SCHED.max_num_seqs
+    replayed = engine._decode_graph(toks).clone()
+    restore()
+    eager = engine._decode_eager(toks)
+    restore()
+    cos = _cosine_rows(replayed, eager)
+    _require(bool((cos >= 0.999).all()), f"graph-replayed decode logits against "
+             f"the eager path: cosine >= 0.999 (min {float(cos.min()):.6f})")
+    return float(cos.min())
+
+
+def _family_kinds(cfg) -> list:
+    """(stateful module kind, window) whose context points phase 14 times."""
+    if cfg.attn_type == "mla":
+        return [("mla_attn", 0)]
+    if "moe" in cfg.layer_kinds():
+        return [("moe", 0)]
+    return [("self_attn", cfg.sliding_window), ("mamba", 0)]
+
+
+def _family_points(cfg, device, kind: str, window: int) -> dict:
+    """The context's points through the oracle, two timings each: prefill
+    at FAMILY_PREFILL_TOKS x FAMILY_REQS on a fresh sequence, decode at
+    FAMILY_REQS x FAMILY_CTX with every row's cache full up to ctx."""
+    cuda = device.type == "cuda"
+    oracle = cuda_events if cuda else cpu_wallclock
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for phase in phases_for(kind, cfg):
+        mc = build_context(cfg, kind, phase=phase, backend="kernel",
+                           window=window, device=device)
+        module = mc.module(mc.materialize(mc.params, gen))
+        points = ([(t, r, 0) for t in FAMILY_PREFILL_TOKS[kind] for r in FAMILY_REQS]
+                  if phase == "prefill" else
+                  [(1, r, c) for r in FAMILY_REQS for c in FAMILY_CTX])
+        for toks, reqs, ctx in points:
+            inputs = mc.materialize(mc.abstract_inputs(toks, reqs, ctx), gen)
+            if phase == "decode" and kind != "mamba":
+                inputs[-1].fill_(ctx - 1)
+            args = (module, *inputs)
+            out[(phase, toks, reqs, ctx)] = [
+                oracle(mc.fn, args, device=device) if cuda else oracle(mc.fn, args)
+                for _ in range(2)]
+        del module
+    _release(device)
+    return out
+
+
+def _expected_launches(cfg, decode_iters: int, chunks: int, cuda: bool) -> tuple:
+    """(decode, flash fwd, flash bwd, scan) launches of one served run: the
+    decode kernel once per GQA attention layer and decode iteration, the
+    scan once per Mamba mixer and chunk or decode iteration; MLA and MoE
+    run no kernel of their own, and chunked prefill no flash kernel."""
+    if not cuda:
+        return (0, 0, 0, 0)
+    kinds = cfg.layer_kinds()
+    attn = sum(k != "mamba" for k in kinds) if cfg.attn_type == "gqa" else 0
+    mixers = sum(k in ("mamba", "hybrid") for k in kinds)
+    return (attn * decode_iters, 0, 0, mixers * (chunks + decode_iters))
+
+
+def _family_prefill(cfg, device) -> dict:
+    """Model.prefill on a PREFILL_LEN-token prompt through the kernels (a
+    config with windowed attention and SSM state: the flash forward and the
+    scan once per layer), its last logits against the plain path's: in the
+    model dtype printed, in float32 held (cosine >= 0.99), as phase 8
+    holds the Mamba prefill."""
+    cuda = device.type == "cuda"
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, PREFILL_LEN))
+
+    def model_in(dtype):
+        return Model(cfg, device=device, dtype=dtype,
+                     generator=torch.Generator(device=device).manual_seed(0)
+                     ).requires_grad_(False)
+    model = model_in(None)
+    _zero_counts()
+    t0 = time.perf_counter()
+    lk, _ = model.prefill(tokens, max_seq=MAX_SEQ, impl="kernel")
+    if cuda:
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    mixers = sum(k in ("mamba", "hybrid") for k in cfg.layer_kinds())
+    expect = (0, cfg.n_layers, 0, mixers) if cuda else (0, 0, 0, 0)
+    _require(counts == expect, f"prefill launches (decode, flash fwd, flash bwd, "
+             f"scan) {counts} == {expect}")
+    _require(bool(torch.isfinite(lk).all()), "prefill logits are finite")
+    lx, _ = model.prefill(tokens, max_seq=MAX_SEQ, impl="xla")
+    cos = float(_cosine_rows(lk, lx).min())
+    del model
+    _release(device)
+    model = model_in(torch.float32)
+    lk32, _ = model.prefill(tokens, max_seq=MAX_SEQ, impl="kernel")
+    lx32, _ = model.prefill(tokens, max_seq=MAX_SEQ, impl="xla")
+    cos32 = float(_cosine_rows(lk32, lx32).min())
+    _require(cos32 >= 0.99, f"float32 prefill kernel vs plain cosine >= 0.99 "
+             f"({cos32:.6f})")
+    del model
+    _release(device)
+    print(f"  {PREFILL_LEN}-token Model.prefill ({cfg.dtype}) in {wall:.4f} s "
+          f"(first call, host clock): kernel launches (decode, flash fwd, flash "
+          f"bwd, scan) {counts}, window {cfg.sliding_window}, D "
+          f"{cfg.resolved_head_dim}; last logits kernel vs plain cosine "
+          f"{cos:.6f} in {cfg.dtype} (printed), {cos32:.6f} in float32 (held)")
+    return {"launches": counts, "flash_launches": counts[1],
+            "scan_launches": counts[3], "cosine": cos, "fp32_cosine": cos32}
+
+
+def phase_family(cfg, device, tag: str) -> dict:
+    """Phase 14 for one family at full width and depth: the Engine serves
+    the phase-4 requests twice from CUDA graphs (launches as
+    ``_expected_launches``), a graph-replayed decode step against the eager
+    path, the stateful modules' context points; for a config with SSM state
+    also a full-sequence prefill through the kernels."""
+    cuda = device.type == "cuda"
+    run = _serve(cfg, device)
+    engine, requests, decode_iters = run["engine"], run["requests"], run["decode_iters"]
+    chunks = sum(r.n_chunks for r in engine.records)
+    counts = run["counts"]
+    expect = _expected_launches(cfg, decode_iters, chunks, cuda)
+    _require(counts == expect, f"{cfg.name} serving launches (decode, flash fwd, "
+             f"flash bwd, scan) {counts} == {expect}")
+    card = _card(device)
+    n_params = sum(p.numel() for p in engine.model.parameters())
+    print(f"[14 {tag}] {cfg.name}, {cfg.n_layers} layers "
+          f"({', '.join(sorted(set(cfg.layer_kinds())))}), {n_params / 1e9:.3f} B "
+          f"parameters, {cfg.dtype}, full width and depth: {len(requests)} "
+          f"requests, prompts {sorted(run['lens'].tolist())}, served "
+          f"{len(run['runs'])} times, {run['runs'][0]['iterations']} iterations "
+          f"({chunks} prefill chunks, {decode_iters} with decodes), peak memory "
+          f"{run['peak'] / 2**30:.2f} GiB, kernel launches (decode, flash fwd, "
+          f"flash bwd, scan) {counts} a run; {card}")
+    _print_runs(f"14 {tag}", run, card)
+    decode_ms = [r["decode_ms"] for r in run["runs"]]
+    cos = _graph_vs_eager(engine, device)
+    print(f"  median decode-only iteration {', '.join(f'{ms:.3f}' for ms in decode_ms)}"
+          f" ms; graph-replayed decode step against the eager path: "
+          + ("n/a (no graphs off the card)" if cos is None else
+             f"min cosine {cos:.6f}"))
+    summary = _run_summary(run)
+    del engine, run
+    _release(device)
+    points = {}
+    for kind, window in _family_kinds(cfg):
+        points[kind] = _family_points(cfg, device, kind, window)
+        print(f"  {kind}{f' (window {window})' if window else ''} points, "
+              f"{'cuda_events' if cuda else 'cpu_wallclock'}, two timings each: "
+              + "; ".join(f"{ph} toks={t} reqs={r} ctx={c}: "
+                          + ", ".join(f"{x * 1e6:.1f}" for x in xs) + " us"
+                          for (ph, t, r, c), xs in points[kind].items()))
+    out = {"launches": counts, "decode_launches": counts[0],
+           "scan_launches": counts[3], "chunks": chunks, "graph_cosine": cos,
+           "n_params": n_params, "decode_ms": decode_ms, "points": points,
+           **summary}
+    if cfg.ssm_state and cfg.attn_type == "gqa":
+        out["prefill"] = _family_prefill(cfg, device)
+    return out
+
+
+def phase_family_plan(cli_args, device, *, models, full: bool, base_db: Path,
+                      db: Path) -> dict:
+    """Phase 14's plan: ``models`` profiled in one process through the
+    profile CLI (quick sweep, kernel backend) on a copy of ``base_db``
+    (phase 13's merged DB, which holds llama3-8b's and command-r7b's
+    points): the plan's tasks, shared tasks, tasks satisfied by the DB and
+    measured, and the profiling GPU-seconds, each point at the sweep's
+    repeats, spent on the tasks this run measured and over every model,
+    against what per-model profiling would spend."""
+    for old in db.parent.glob(db.name + "*"):
+        old.unlink()
+    shutil.copyfile(base_db, db)
+    res = _ok(_cli("14 plan", "profile", "run", "--models", ",".join(models),
+                   "--backends", PROFILE_BACKEND, "--sweep", "quick",
+                   *(["--full"] if full else []), *cli_args, "--db", db.name,
+                   "--json", "-", cwd=db.parent), "14 plan")
+    rep = json.loads(res["stdout"])
+    cov = rep["coverage"]
+    hardware = cov["hardware"]
+    with LatencyDB(str(base_db)) as base:
+        before = set(base.measured_hashes(hardware))
+    with LatencyDB(str(db)) as d:
+        cost = {sig: QUICK_SWEEP.repeats * sum(
+            d.measurement_map(sig, hardware).values()) / 1e6
+            for sig in d.measured_hashes(hardware)}
+        users = dict(d.conn.execute(
+            "SELECT o.sig_hash, COUNT(DISTINCT c.model) FROM model_operations o "
+            "JOIN configurations c ON c.id = o.config_id GROUP BY o.sig_hash"))
+        kinds = dict(d.conn.execute("SELECT hash, op_name FROM signatures"))
+    new = [sig for sig in cost if sig not in before]
+    spent_new = sum(cost[sig] for sig in new)
+    spent = sum(cost.values())
+    naive = sum(v * users.get(sig, 1) for sig, v in cost.items())
+    by_kind = {}
+    for sig in new:
+        k = kinds.get(sig, "?")
+        k = k if k in ("self_attn", "mla_attn", "moe", "mamba") else "op"
+        by_kind[k] = by_kind.get(k, 0.0) + cost[sig]
+    _require(rep["measured"] > 0 and len(new) == rep["measured"],
+             f"the plan measures the new models' tasks ({rep['measured']}, "
+             f"{len(new)} new signatures)")
+    print(f"[14 plan] {', '.join(models)} ({'full width' if full else 'smoke'}, "
+          f"{PROFILE_BACKEND} backend, quick sweep, {hardware}) on a copy of "
+          f"{base_db.name}: {cov['naive_tasks']} tasks model by model, "
+          f"{cov['plan_tasks']} in the plan ({100 * cov['dedup_frac']:.1f} % task "
+          f"dedup), {cov['shared_tasks']} shared between models, "
+          f"{cov['satisfied_tasks']} already in the DB, {rep['measured']} measured "
+          f"({rep['rows_written']} points, {rep['elapsed_s']:.2f} s executing, "
+          f"{res['wall_s']:.1f} s wall in its own process); {_card(device)}")
+    print(f"  profiling GPU-seconds at {QUICK_SWEEP.repeats} repeats a point: "
+          f"{spent_new:.4f} s on the tasks this run measured ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kind.items()))
+          + f"); the five models {spent:.4f} s, saved {naive - spent:.4f} s of "
+          f"{naive:.4f} s that per-model profiling would spend")
+    return {"coverage": cov, "measured": rep["measured"],
+            "rows": rep["rows_written"], "spent_new_s": spent_new,
+            "spent_s": spent, "naive_s": naive, "saved_s": naive - spent,
+            "by_kind_s": by_kind, "wall_s": res["wall_s"],
+            "decode_launches": res["counts"][0], "flash_launches": res["counts"][1]}
+
+
 def _mapes(cmp: dict) -> str:
     return ", ".join(f"{k} {v:.2f}" for k, v in cmp.items())
 
@@ -1472,17 +1788,108 @@ def _sweep_scoring(store, cfg, device, *, config_fn, sched: SchedulerConfig,
             "mape": cmp, "bias": bias}
 
 
+def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
+                   max_seq: int, calibration: dict, score: dict) -> dict:
+    """DoolySim for ``cfg`` on the store's DB, calibrated on one engine run;
+    the score trace served twice on the engine (its self-noise) and
+    predicted by DoolySim (MAPE against the first run)."""
+    sim = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
+                          backend=PROFILE_BACKEND)
+    _require(not sim.latency.unprofiled_sigs(), "every call-graph signature "
+             f"of {cfg.name} has DB points ({sim.latency.unprofiled_sigs()})")
+    engine = Engine(cfg, sched_config=sched, max_seq=max_seq,
+                    impl=PROFILE_BACKEND, seed=0, device=device)
+    calib = synthetic(calibration["n"], rate=calibration["rate"],
+                      prompt_len=calibration["prompt_len"],
+                      out_len=calibration["out_len"],
+                      seed=calibration["seed"], vocab=cfg.vocab_size)
+    engine.run(calib)
+    fit = sim.calibrate(engine.records)
+    drift = [(_decode_ms(engine.records), _card_state(device))]
+
+    def trace():
+        return sharegpt_like(score["n"], rate=score["rate"], seed=score["seed"],
+                             scale=score["scale"], vocab=cfg.vocab_size)
+    longest = max(r.prompt_len + r.max_new_tokens for r in trace())
+    _require(longest <= max_seq, f"every request fits max_seq ({longest} "
+             f"<= {max_seq})")
+    real, iterations = [], []
+    for _ in range(2):
+        engine.reset()
+        real.append(M.request_metrics(engine.run(trace())["requests"]))
+        iterations.append((len(engine.records),
+                           sum(1 for r in engine.records if not r.n_chunks)))
+        drift.append((_decode_ms(engine.records), _card_state(device)))
+        if len(real) == 1:
+            by_kind = _iteration_errors(sim, engine.records)
+    del engine
+    _release(device)
+    sim_run = sim.run(trace())
+    predicted = M.request_metrics(sim_run["requests"])
+    cmp = M.compare(predicted, real[0])
+    bad = [k for k, v in cmp.items() if not math.isfinite(v)]
+    _require(not bad, f"finite MAPEs of {cfg.name} ({bad})")
+    return {"sim": sim, "trace": trace, "fit": fit, "drift": drift,
+            "real": real, "iterations": iterations, "by_kind": by_kind,
+            "noise": M.compare(real[1], real[0]), "sim_run": sim_run,
+            "predicted": predicted, "cmp": cmp}
+
+
+def _print_scored(res: dict, calibration: dict, score: dict):
+    """The calibration, the engine's and DoolySim's makespans, the
+    iterations by kind, the drift, the self-noise and the MAPEs."""
+    real, predicted, cmp = res["real"], res["predicted"], res["cmp"]
+    print(f"  calibration on {calibration['n']} requests of "
+          f"{calibration['prompt_len']} tokens: " + ", ".join(
+              f"{k} {v:.6g}" for k, v in res["fit"].items()))
+    print(f"  score trace: ShareGPT-like, {score['n']} requests, rate "
+          f"{score['rate']}/s, seed {score['seed']}, scale {score['scale']}; "
+          f"engine makespans {real[0]['finish'][-1]:.4f}, "
+          f"{real[1]['finish'][-1]:.4f} s over "
+          + ", ".join(f"{n} iterations ({d} decode-only)"
+                      for n, d in res["iterations"])
+          + f"; DoolySim {predicted['finish'][-1]:.4f} s over "
+          f"{len(res['sim_run']['iterations'])} iterations")
+    print("  iterations of engine run 1 against DoolySim's price: " + "; ".join(
+        f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} predicted "
+        f"(median), MAPE {v['mape']:.2f} %, bias {v['bias']:+.2f} %"
+        for k, v in res["by_kind"].items()))
+    print(f"  TTFT mean signed error of DoolySim vs engine run 1: "
+          f"{100 * _bias(predicted, real[0], 'ttft'):+.2f} %")
+    print("  median decode-only iteration, calibration run and score runs 1 "
+          "and 2, with the card's SM clock, power and temperature after each: "
+          + "; ".join(f"{ms:.3f} ms ({state})" for ms, state in res["drift"]))
+    print(f"  engine self-noise (run 2 vs run 1): {_mapes(res['noise'])}")
+    print(f"  DoolySim vs the engine: {_mapes(cmp)}; paper bars TTFT 5 %, "
+          f"TPOT 8 %: " + ", ".join(
+              f"{k} {'held' if cmp[k] <= bar else 'failed'}"
+              for k, bar in PAPER_MAPE.items()))
+
+
+def _scored_summary(res: dict) -> dict:
+    return {"calibration": res["fit"], "noise": res["noise"], "sim": res["cmp"],
+            "engine_makespans_s": [float(r["finish"][-1]) for r in res["real"]],
+            "engine_iterations": res["iterations"],
+            "iteration_errors": res["by_kind"],
+            "decode_ms": [ms for ms, _ in res["drift"]],
+            "ttft_bias": _bias(res["predicted"], res["real"][0], "ttft"),
+            "sim_iterations": len(res["sim_run"]["iterations"])}
+
+
 def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                            sweep: SweepConfig, sched: SchedulerConfig,
                            max_seq: int, calibration: dict, score: dict,
                            shared_variant: str, scoring: dict,
-                           config_fn, db: str) -> dict:
+                           config_fn, db: str, also=()) -> dict:
     """Dooly's loop: plan and profile ``cfgs`` (the first is the served
     model), calibrate DoolySim on one engine run, then serve the score trace
     twice on the engine and predict it; then sweep the served model on that
-    DB (``_sweep_scoring``; ``config_fn`` resolves its registry name).
-    Kernel counts are zeroed just before the plan's execution and read after
-    the last engine run.  ``db``: where the store keeps its points."""
+    DB (``_sweep_scoring``; ``config_fn`` resolves its registry name).  Each
+    config of ``also`` is then profiled into the same DB and scored the same
+    way (its plan is built with the first, so that every fingerprint comes
+    before any timing).  Kernel counts are zeroed just before the plan's
+    execution and read after the last engine run.  ``db``: where the store
+    keeps its points."""
     cfg = cfgs[0]
     cuda = device.type == "cuda"
     fallbacks = fingerprint.fallbacks
@@ -1491,6 +1898,8 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
         t0 = time.perf_counter()
         plan = store.plan(cfgs, backends=(PROFILE_BACKEND,))
         plan_s = time.perf_counter() - t0
+        also_plans = [(c, store.plan([c], backends=(PROFILE_BACKEND,)))
+                      for c in also]
         _require(fingerprint.fallbacks == fallbacks,
                  f"no fingerprint fell back ({fingerprint.fallbacks - fallbacks} "
                  f"did; the last with {fingerprint.last_error})")
@@ -1523,104 +1932,69 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
               + "; ".join(f"{r.model} spent {r.spent_s:.4f} s, saved "
                           f"{r.saved_s:.4f} s ({r.n_new} new, {r.n_reused} "
                           f"reused)" for r in reports))
-        sim = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
-                              backend=PROFILE_BACKEND)
-        _require(not sim.latency.unprofiled_sigs(), "every call-graph signature "
-                 f"has DB points ({sim.latency.unprofiled_sigs()})")
         # each point is one graph replay less this floor, so a model step
         # priced from calls_per_step points has it subtracted that often
         floor_us = launch_floor(device) * 1e6 if cuda else None
-        calls_per_step = sum(row.count for row in sim.latency.rows)
+        calls_per_step = sum(row.count for row in store.simulator(
+            cfg, sched_config=sched, max_seq=max_seq,
+            backend=PROFILE_BACKEND).latency.rows)
         if cuda:
             print(f"  cuda_events launch floor {floor_us:.3f} us a point; "
                   f"{calls_per_step} timed calls price one step of {cfg.name} "
                   f"({calls_per_step * floor_us / 1e3:.3f} ms of floor)")
-        engine = Engine(cfg, sched_config=sched, max_seq=max_seq,
-                        impl=PROFILE_BACKEND, seed=0, device=device)
-        calib = synthetic(calibration["n"], rate=calibration["rate"],
-                          prompt_len=calibration["prompt_len"],
-                          out_len=calibration["out_len"],
-                          seed=calibration["seed"], vocab=cfg.vocab_size)
-        engine.run(calib)
-        fit = sim.calibrate(engine.records)
-        drift = [(_decode_ms(engine.records), _card_state(device))]
-
-        def trace():
-            return sharegpt_like(score["n"], rate=score["rate"], seed=score["seed"],
-                                 scale=score["scale"], vocab=cfg.vocab_size)
-        longest = max(r.prompt_len + r.max_new_tokens for r in trace())
-        _require(longest <= max_seq, f"every request fits max_seq ({longest} "
-                 f"<= {max_seq})")
-        real, iterations = [], []
-        for _ in range(2):
-            engine.reset()
-            real.append(M.request_metrics(engine.run(trace())["requests"]))
-            iterations.append((len(engine.records),
-                               sum(1 for r in engine.records if not r.n_chunks)))
-            drift.append((_decode_ms(engine.records), _card_state(device)))
-            if len(real) == 1:
-                by_kind = _iteration_errors(sim, engine.records)
-        del engine
-        _release(device)
-        noise = M.compare(real[1], real[0])
-        sim_run = sim.run(trace())
-        predicted = M.request_metrics(sim_run["requests"])
-        cmp = M.compare(predicted, real[0])
+        res = _engine_vs_sim(store, cfg, device, sched=sched, max_seq=max_seq,
+                             calibration=calibration, score=score)
         roof = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
                                latency="roofline")
-        roof_run = roof.run(trace())
-        roof_cmp = M.compare(M.request_metrics(roof_run["requests"]), real[0])
+        roof_run = roof.run(res["trace"]())
+        roof_cmp = M.compare(M.request_metrics(roof_run["requests"]),
+                             res["real"][0])
+        cmp = res["cmp"]
+        _require(cmp["makespan_mape"] <= MAKESPAN_MAPE_LIMIT,
+                 f"makespan MAPE {cmp['makespan_mape']:.2f} <= {MAKESPAN_MAPE_LIMIT}")
+        _print_scored(res, calibration, score)
+        print(f"  roofline makespan {roof_run['makespan']:.4f} s; roofline vs "
+              f"the engine: {_mapes(roof_cmp)}")
         scored = _sweep_scoring(store, cfg, device, config_fn=config_fn,
                                 sched=sched, max_seq=max_seq, score=score,
-                                scoring=scoring, fit=fit)
+                                scoring=scoring, fit=res["fit"])
         counts = _counts()
-    bad = [k for k, v in cmp.items() if not math.isfinite(v)]
-    _require(not bad, f"finite MAPEs ({bad})")
-    _require(cmp["makespan_mape"] <= MAKESPAN_MAPE_LIMIT,
-             f"makespan MAPE {cmp['makespan_mape']:.2f} <= {MAKESPAN_MAPE_LIMIT}")
-    if cuda:
-        _require(counts[0] > 0, "the loop launched the decode kernel")
-    print(f"  calibration on {calibration['n']} requests of "
-          f"{calibration['prompt_len']} tokens: " + ", ".join(
-              f"{k} {v:.6g}" for k, v in fit.items()))
-    print(f"  score trace: ShareGPT-like, {score['n']} requests, rate "
-          f"{score['rate']}/s, seed {score['seed']}, scale {score['scale']}; "
-          f"engine makespans {real[0]['finish'][-1]:.4f}, "
-          f"{real[1]['finish'][-1]:.4f} s over "
-          + ", ".join(f"{n} iterations ({d} decode-only)" for n, d in iterations)
-          + f"; DoolySim {predicted['finish'][-1]:.4f} s over "
-          f"{len(sim_run['iterations'])} iterations; roofline "
-          f"{roof_run['makespan']:.4f} s")
-    print("  iterations of engine run 1 against DoolySim's price: " + "; ".join(
-        f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} predicted "
-        f"(median), MAPE {v['mape']:.2f} %, bias {v['bias']:+.2f} %"
-        for k, v in by_kind.items()))
-    ttft_bias = _bias(predicted, real[0], "ttft")
-    print(f"  TTFT mean signed error of DoolySim vs engine run 1: "
-          f"{100 * ttft_bias:+.2f} %")
-    print("  median decode-only iteration, calibration run and score runs 1 "
-          "and 2, with the card's SM clock, power and temperature after each: "
-          + "; ".join(f"{ms:.3f} ms ({state})" for ms, state in drift))
-    print(f"  engine self-noise (run 2 vs run 1): {_mapes(noise)}")
-    print(f"  DoolySim vs the engine: {_mapes(cmp)}; paper bars TTFT 5 %, "
-          f"TPOT 8 %: " + ", ".join(
-              f"{k} {'held' if cmp[k] <= bar else 'failed'}"
-              for k, bar in PAPER_MAPE.items()))
-    print(f"  roofline vs the engine: {_mapes(roof_cmp)}")
-    print(f"  kernel launches (decode, flash fwd, flash bwd, scan) over the "
-          f"execution and the engine runs: {counts}")
+        if cuda:
+            _require(counts[0] > 0, "the loop launched the decode kernel")
+        print(f"  kernel launches (decode, flash fwd, flash bwd, scan) over the "
+              f"execution and the engine runs: {counts}")
+        more = {}
+        for other, other_plan in also_plans:
+            _zero_counts()
+            other_cov = other_plan.coverage()
+            t0 = time.perf_counter()
+            other_rep = store.execute(other_plan, workers=1)
+            other_s = time.perf_counter() - t0
+            other_res = _engine_vs_sim(store, other, device, sched=sched,
+                                       max_seq=max_seq, calibration=calibration,
+                                       score=score)
+            other_counts = _counts()
+            print(f"[12 profile->simulate] {other.name} through the same loop "
+                  f"(plan built before any timing): {len(other_plan.tasks)} tasks, "
+                  f"{other_rep.measured} measured ({other_rep.satisfied} already "
+                  f"in the DB), {other_rep.rows_written} points in {other_s:.1f} s; "
+                  f"kernel launches (decode, flash fwd, flash bwd, scan) "
+                  f"{other_counts}; {_card(device)}")
+            _print_scored(other_res, calibration, score)
+            more[other.name] = {**_scored_summary(other_res),
+                                "tasks": len(other_plan.tasks),
+                                "planned_points": other_cov.plan_points,
+                                "rows": other_rep.rows_written, "execute_s": other_s,
+                                "decode_launches": other_counts[0],
+                                "launches": list(other_counts)}
     return {"coverage": cov.to_json(), "plan_s": plan_s, "execute_s": exec_s,
             "rows": rows, "spent_s": [r.spent_s for r in reports],
-            "saved_s": [r.saved_s for r in reports], "calibration": fit,
-            "noise": noise, "sim": cmp, "roofline": roof_cmp,
-            "roofline_makespan_s": roof_run["makespan"],
-            "engine_makespans_s": [float(r["finish"][-1]) for r in real],
-            "engine_iterations": iterations, "iteration_errors": by_kind,
-            "decode_ms": [ms for ms, _ in drift],
-            "ttft_bias": ttft_bias, "launch_floor_us": floor_us,
-            "calls_per_step": calls_per_step,
-            "sim_iterations": len(sim_run["iterations"]), "sweep": scored,
-            "decode_launches": counts[0], "flash_launches": counts[1]}
+            "saved_s": [r.saved_s for r in reports], **_scored_summary(res),
+            "roofline": roof_cmp, "roofline_makespan_s": roof_run["makespan"],
+            "launch_floor_us": floor_us, "calls_per_step": calls_per_step,
+            "sweep": scored, "decode_launches": counts[0]
+            + sum(m["decode_launches"] for m in more.values()),
+            "flash_launches": counts[1], "also": more}
 
 
 RESULT_TAG = "profile-simulate result: "
@@ -1639,7 +2013,7 @@ def profile_simulate_main() -> int:
         hardware=default_hardware(), sweep=PROFILE_SWEEP,
         sched=SCHED, max_seq=MAX_SEQ, calibration=CALIBRATION, score=SCORE,
         shared_variant=SHARED_VARIANT, scoring=SCORING, config_fn=get_config,
-        db=str(PHASE12_DB))
+        db=str(PHASE12_DB), also=[get_config(MOE)])
     print(RESULT_TAG + json.dumps(out))
     return 0
 
@@ -1876,21 +2250,30 @@ def phase_cli(workdir: Path, cli_args: list, device, *, models, full: bool,
 
 def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                  train: dict, mamba_serving: dict, mamba_prefill: dict,
-                 loop: dict, cli: dict) -> dict:
+                 loop: dict, cli: dict, families: dict = None,
+                 plan: dict = None) -> dict:
     """Launches are counted on the main paths: decode while serving llama3
-    (one run) and granite-20b, over phase 12's loop and sweep scoring and
-    over phase 13's CLI processes, the flash forward over the prefill, the
-    train steps, the loop and the CLIs, the backward over the train steps,
-    the scan while serving falcon-mamba (one run) and over its prefill."""
+    (one run), granite-20b and phase 14's families (one run each), over
+    phase 12's loop (olmoe-1b-7b's scoring included) and sweep scoring and
+    over the CLI processes of phases 13 and 14, the flash forward over the
+    prefills (hymba-1.5b's too), the train steps, the loop and the CLIs, the
+    backward over the train steps, the scan while serving falcon-mamba and
+    hymba-1.5b (one run each) and over their prefills."""
+    families, plan = families or {}, plan or {}
+    fam = list(families.values())
     launches = {"decode_attention": serving["decode_launches"]
                 + granite["decode_launches"] + loop["decode_launches"]
-                + cli["decode_launches"],
+                + cli["decode_launches"] + plan.get("decode_launches", 0)
+                + sum(f["decode_launches"] for f in fam),
                 "flash_attention_fwd": prefill["flash_launches"]
                 + train["flash_fwd_launches"] + loop["flash_launches"]
-                + cli["flash_launches"],
+                + cli["flash_launches"] + plan.get("flash_launches", 0)
+                + sum(f["prefill"]["flash_launches"] for f in fam if "prefill" in f),
                 "flash_attention_bwd": train["flash_bwd_launches"],
                 "mamba_scan": mamba_serving["scan_launches"]
-                + mamba_prefill["scan_launches"]}
+                + mamba_prefill["scan_launches"]
+                + sum(f["scan_launches"] + f.get("prefill", {}).get("scan_launches", 0)
+                      for f in fam)}
     times = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "library_device_ms")
     line = {"kernels": [
@@ -1924,8 +2307,10 @@ def main() -> int:
     t0 = time.perf_counter()
     info = phase_device(cfg, device)
     phase_build(cfg, device)
-    kernels = phase_kernels(cfg, device)
-    kernels.update(phase_scan(mcfg, device))
+    families = [get_config(n) for n in (MLA, MOE, HYBRID)]
+    kernels = phase_kernels(cfg, device, family_cfgs=families)
+    kernels.update(phase_scan(mcfg, device,
+                              family_cfgs=[c for c in families if c.ssm_state]))
     serving = phase_serving(cfg, device)
     prefill = phase_prefill(cfg, device)
     train = phase_train(cfg, device)
@@ -1940,9 +2325,14 @@ def main() -> int:
     loop = phase_profile_simulate_process()
     cli = phase_cli(CLI_DIR, [], device, models=PROFILE_MODELS, full=True,
                     shared_variant=SHARED_VARIANT, compare_db=PHASE12_DB)
+    served = {}
+    for tag, fcfg in zip(("mla", "moe", "hybrid"), families):
+        served[tag] = phase_family(fcfg, device, tag)
+    plan = phase_family_plan([], device, models=PLAN_MODELS, full=True,
+                             base_db=CLI_DIR / "merged.sqlite", db=PHASE14_DB)
     print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill, loop, cli)
+                 mamba_prefill, loop, cli, served, plan)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -21,6 +21,9 @@ _MODULES = {
     "starcoder2-15b": "starcoder2_15b",
     "granite-20b": "granite_20b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "minicpm3-4b": "minicpm3_4b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

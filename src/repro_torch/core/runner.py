@@ -100,7 +100,7 @@ def trace_model(cfg: ModelConfig, *, batch: Optional[int] = None,
             tokens = torch.zeros((b, s), dtype=torch.long, device="meta")
 
             def fn(tokens):
-                return model(tokens, impl=impl, remat=False)
+                return model(tokens, impl=impl, remat=False)[0]
 
             trace = trace_tainted(
                 fn, (tokens,), registry=registry, root=model,

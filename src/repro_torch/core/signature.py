@@ -9,7 +9,10 @@ components:
    boundary is its first and last linear projection, each as (activation,
    weight) with the (B*S) dim an aten ``mm`` merges split back into its
    request and token labels, so that it reads as the reference's first and
-   last ``dot_general``; its ``n_ops`` counts aten ops, not jaxpr
+   last ``dot_general``; a ``moe`` entry's is its first and last op, as
+   the reference reads every module's, since both traces open the FFN
+   with the reshape that flattens its tokens and close it with the one
+   that restores them; its ``n_ops`` counts aten ops, not jaxpr
    equations;
 2. the kernel fingerprint at a canonical probe point.  On the card it is
    the sorted set of CUDA kernel names that ``torch.profiler`` records for
@@ -51,6 +54,8 @@ PROBE_CTX = 16
 
 #: the aten overloads of a linear projection (the reference's dot_general)
 LINEAR_OPS = ("mm", "addmm", "bmm")
+#: module kinds whose boundary is their first and last op (see above)
+_OP_BOUNDARY = ("moe",)
 #: a merged workload dim splits batch-major, as the port's views merge it
 _SPLIT_ORDER = {NUM_REQS: 0, NUM_TOKS: 1}
 
@@ -213,7 +218,7 @@ def module_entry_signature(entry: ModuleEntry, context,
     other phases, whose kernels join the fingerprint."""
     ops = entry.ops or entry.node.all_ops()
     linear = [op for op in ops if op.name in LINEAR_OPS]
-    if linear:
+    if linear and entry.kind not in _OP_BOUNDARY:
         boundary = [_linear_boundary(op) for op in linear[:1] + linear[-1:]]
     else:
         boundary = [[list(dim_template(s, t))

@@ -1,11 +1,11 @@
 """Decoder blocks: full-sequence apply (train / prefill), chunked prefill
-against a cache, and one-token decode.
+against a cache, one-token decode, and each block's cache.
 
-Counterpart of ``repro.models.transformer`` for the dense and Mamba block
-kinds.  The reference scans over a repeating period of layers; PyTorch runs
-eagerly, so the port keeps one ``Block`` per layer (``layers.{i}``) and
-loops over them.  Block kinds other than these (MoE, hybrid) and enc-dec
-come with their families' slices.
+Counterpart of ``repro.models.transformer`` for the dense, MLA, MoE, Mamba
+and hybrid block kinds.  The reference scans over a repeating period of
+layers; PyTorch runs eagerly, so the port keeps one ``Block`` per layer
+(``layers.{i}``) and loops over them.  Cross-attention (enc-dec) comes with
+its family's slice.
 """
 from __future__ import annotations
 
@@ -19,9 +19,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import MLP, RMSNorm, apply_rope
 
 Cache = Dict[str, torch.Tensor]
+Aux = Dict[str, torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -43,31 +46,46 @@ def layer_descs(cfg: ModelConfig) -> List[BlockDesc]:
 
 
 class Block(nn.Module):
-    """One decoder layer.  Dense: ``ln1``, ``self_attn``, ``ln2``, ``mlp``;
-    Mamba: ``ln1`` and ``mamba`` only, as the reference's ``block_spec``."""
+    """One decoder layer, its submodules named as the reference's trace
+    scopes: ``ln1``, the attention (``self_attn``, or ``mla_attn`` for an
+    MLA config), ``mamba`` beside it in a hybrid block, ``ln2`` and the FFN
+    (``mlp``, or ``moe``); a Mamba block has ``ln1`` and ``mamba`` only."""
 
     def __init__(self, cfg: ModelConfig, desc: BlockDesc, *, device=None,
                  dtype=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        dense = desc.kind == "dense" and cfg.attn_type == "gqa"
-        if desc.cross or not (dense or desc.kind == "mamba"):
+        if desc.cross:
             raise NotImplementedError(
-                f"{cfg.name}: block kind {desc.kind!r} (cross={desc.cross}, "
-                f"attn={cfg.attn_type!r}) is not ported; the port runs dense "
-                "GQA decoders and Mamba blocks")
+                f"{cfg.name}: cross-attention blocks (enc-dec) are not ported")
         self.cfg, self.desc = cfg, desc
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if desc.kind == "mamba":
             self.mamba = mamba_mod.Mamba(cfg, **kw)
             return
-        self.self_attn = attn_mod.Attention(cfg, **kw)
+        if cfg.attn_type == "mla":
+            self.mla_attn = mla_mod.MLA(cfg, **kw)
+        else:
+            self.self_attn = attn_mod.Attention(cfg, **kw)
+        if desc.kind == "hybrid":
+            self.mamba = mamba_mod.Mamba(cfg, **kw)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+        if desc.kind == "moe":
+            self.moe = moe_mod.MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                impl: str) -> torch.Tensor:
-        return block_apply(self, x, positions=positions, impl=impl)[0]
+                impl: str) -> Tuple[torch.Tensor, Optional[Aux]]:
+        """(x_out, the MoE aux losses or None)."""
+        return block_apply(self, x, positions=positions, impl=impl)[:2]
+
+
+def _ffn(block: Block, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[Aux]]:
+    h = block.ln2(x)
+    if block.desc.kind == "moe":
+        return block.moe(h)
+    return block.mlp(h), None
 
 
 # ---------------------------------------------------------------------------
@@ -76,26 +94,43 @@ class Block(nn.Module):
 
 def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
                 impl: str, causal: bool = True, collect_cache: bool = False,
-                max_seq: int = 0) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x_out, cache_entry_or_None): ``{"k", "v"}`` for attention,
-    ``{"conv", "h"}`` for Mamba."""
+                max_seq: int = 0
+                ) -> Tuple[torch.Tensor, Optional[Aux], Optional[Cache]]:
+    """Returns (x_out, aux_or_None, cache_entry_or_None): the MoE aux
+    losses, and the layer's decode cache, ``{"k", "v"}`` for attention,
+    ``{"c", "k_rope"}`` for MLA, ``{"conv", "h"}`` for Mamba, both for a
+    hybrid block."""
     desc = block.desc
     h = block.ln1(x)
+    cache: Cache = {}
     if desc.kind == "mamba":
         if not collect_cache:
-            return x + block.mamba(h, impl=impl), None
+            return x + block.mamba(h, impl=impl), None, None
         y, (tail, hs) = block.mamba(h, return_state=True, impl=impl)
-        return x + y, {"conv": tail, "h": hs}
-    y = block.self_attn(h, positions, causal=causal, window=desc.window,
-                        impl=impl)
-    cache = None
-    if collect_cache:
-        k, v = attn_mod.compute_kv(block.self_attn, h, positions)
-        slots = min(desc.window, max_seq) if desc.window > 0 else max_seq
-        cache = {"k": _fill_ring(k, slots), "v": _fill_ring(v, slots)}
+        return x + y, None, {"conv": tail, "h": hs}
+    if block.cfg.attn_type == "mla":
+        y = block.mla_attn(h, positions, impl=impl)
+        if collect_cache:
+            c, k_rope = mla_mod.project_latent(block.mla_attn, h, positions)
+            cache.update(c=_fill_linear(c, max_seq),
+                         k_rope=_fill_linear(k_rope, max_seq))
+    else:
+        y = block.self_attn(h, positions, causal=causal, window=desc.window,
+                            impl=impl)
+        if collect_cache:
+            k, v = attn_mod.compute_kv(block.self_attn, h, positions)
+            slots = min(desc.window, max_seq) if desc.window > 0 else max_seq
+            cache.update(k=_fill_ring(k, slots), v=_fill_ring(v, slots))
+    if desc.kind == "hybrid":
+        if collect_cache:
+            ym, (tail, hs) = block.mamba(h, return_state=True, impl=impl)
+            cache.update(conv=tail, h=hs)
+        else:
+            ym = block.mamba(h, impl=impl)
+        y = y + ym
     x = x + y
-    x = x + block.mlp(block.ln2(x))
-    return x, cache
+    y2, aux = _ffn(block, x)
+    return x + y2, aux, (cache or None)
 
 
 def _fill_ring(kv: torch.Tensor, slots: int) -> torch.Tensor:
@@ -109,6 +144,13 @@ def _fill_ring(kv: torch.Tensor, slots: int) -> torch.Tensor:
     pos = torch.arange(s - slots, s, device=kv.device)
     ring[:, pos % slots] = kv[:, s - slots:]
     return ring
+
+
+def _fill_linear(x: torch.Tensor, max_seq: int) -> torch.Tensor:
+    """(B,S,R) -> (B,max_seq,R), zero-padded."""
+    out = x.new_zeros((x.shape[0], max_seq) + x.shape[2:])
+    out[:, :x.shape[1]] = x
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -170,20 +212,31 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
                         lengths: torch.Tensor, impl: str) -> torch.Tensor:
     """x: (B,C,D) chunk; lengths (B,): tokens already cached per row.
     Engine caches are absolute-position (use_ring=False); ``cache`` is
-    updated in place.  A Mamba block continues from the cache's conv tail
+    updated in place.  A Mamba mixer continues from the cache's conv tail
     and SSM state and writes the chunk's into it."""
-    if block.desc.kind == "mamba":
-        y, (tail, hs) = block.mamba(block.ln1(x), h0=cache["h"],
-                                    conv_tail=cache["conv"], return_state=True,
-                                    impl=impl)
-        cache["conv"].copy_(tail)
-        cache["h"].copy_(hs)
-        return x + y
-    y = prefill_chunk_attention(
-        block.self_attn, block.ln1(x), cache, lengths=lengths,
-        window=block.desc.window, impl=impl)
+    desc = block.desc
+    h = block.ln1(x)
+    if desc.kind == "mamba":
+        return x + _mamba_chunk(block.mamba, h, cache, impl)
+    if block.cfg.attn_type == "mla":
+        y = mla_mod.mla_prefill_chunk(block.mla_attn, h, cache,
+                                      lengths=lengths, write_chunk=_write_chunk)
+    else:
+        y = prefill_chunk_attention(block.self_attn, h, cache, lengths=lengths,
+                                    window=desc.window, impl=impl)
+    if desc.kind == "hybrid":
+        y = y + _mamba_chunk(block.mamba, h, cache, impl)
     x = x + y
-    return x + block.mlp(block.ln2(x))
+    return x + _ffn(block, x)[0]
+
+
+def _mamba_chunk(mamba: mamba_mod.Mamba, h: torch.Tensor, cache: Cache,
+                 impl: str) -> torch.Tensor:
+    y, (tail, hs) = mamba(h, h0=cache["h"], conv_tail=cache["conv"],
+                          return_state=True, impl=impl)
+    cache["conv"].copy_(tail)
+    cache["h"].copy_(hs)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -194,16 +247,47 @@ def block_decode(block: Block, x: torch.Tensor, cache: Cache, *,
                  lengths: torch.Tensor, impl: str,
                  kv_seq_shards: int = 1) -> torch.Tensor:
     """x: (B,1,D); ``cache`` is updated in place.  Like the reference, a
-    Mamba block advances the state of every row, idle ones included."""
+    Mamba mixer advances the state of every row, idle ones included, and
+    sliding-window attention decodes without its window."""
+    desc = block.desc
     h = block.ln1(x)
-    if block.desc.kind == "mamba":
-        y, state = mamba_mod.mamba_step(block.mamba, h, cache, block.cfg,
-                                        impl=impl)
-        cache["conv"].copy_(state["conv"])
-        cache["h"].copy_(state["h"])
-        return x + y
-    y = attn_mod.decode_attention(block.self_attn, h, cache, lengths=lengths,
-                                  window=block.desc.window, impl=impl,
-                                  kv_seq_shards=kv_seq_shards)
+    if desc.kind == "mamba":
+        return x + _mamba_step(block, h, cache, impl)
+    if block.cfg.attn_type == "mla":
+        y = mla_mod.mla_decode(block.mla_attn, h, cache, lengths=lengths)
+    else:
+        y = attn_mod.decode_attention(block.self_attn, h, cache,
+                                      lengths=lengths, window=desc.window,
+                                      impl=impl, kv_seq_shards=kv_seq_shards)
+    if desc.kind == "hybrid":
+        y = y + _mamba_step(block, h, cache, impl)
     x = x + y
-    return x + block.mlp(block.ln2(x))
+    return x + _ffn(block, x)[0]
+
+
+def _mamba_step(block: Block, h: torch.Tensor, cache: Cache,
+                impl: str) -> torch.Tensor:
+    y, state = mamba_mod.mamba_step(block.mamba, h, cache, block.cfg,
+                                    impl=impl)
+    cache["conv"].copy_(state["conv"])
+    cache["h"].copy_(state["h"])
+    return y
+
+
+def block_cache(cfg: ModelConfig, desc: BlockDesc, batch: int, max_seq: int,
+                *, device, dtype, use_ring: bool = True) -> Cache:
+    """One block's zeroed decode cache (the reference's
+    ``block_cache_spec``).  use_ring=False (serving engine):
+    absolute-position caches even for sliding-window layers, so chunked
+    prefill can address slots directly."""
+    kw = dict(device=device, dtype=dtype)
+    cache: Cache = {}
+    if desc.kind != "mamba":
+        if cfg.attn_type == "mla":
+            cache.update(mla_mod.init_mla_cache(cfg, batch, max_seq, **kw))
+        else:
+            cache.update(attn_mod.init_kv_cache(
+                cfg, batch, max_seq, desc.window if use_ring else 0, **kw))
+    if desc.kind in ("mamba", "hybrid"):
+        cache.update(mamba_mod.init_mamba_state(cfg, batch, **kw))
+    return cache

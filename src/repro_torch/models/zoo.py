@@ -1,16 +1,20 @@
 """Public model API: ``Model(cfg)`` — forward, training loss, full-sequence
 prefill, chunked prefill, one-token decode and zeroed caches.
 
-Counterpart of ``repro.models.zoo`` for dense and Mamba decoders.
-Submodule names follow the reference trace's scopes
-(``layers.{i}.self_attn.q_proj``, ``layers.{i}.mamba.in_proj``, ...) so a
-module-hook tracer finds the stateful ``self_attn`` and ``mamba`` modules.
+Counterpart of ``repro.models.zoo`` for decoders of the dense, MLA, MoE,
+Mamba and hybrid kinds.  Submodule names follow the reference trace's
+scopes (``layers.{i}.self_attn.q_proj``, ``layers.{i}.mla_attn.q_down``,
+``layers.{i}.moe.router``, ``layers.{i}.mamba.in_proj``, ...) so a
+module-hook tracer finds the stateful ``self_attn``, ``mla_attn``, ``moe``
+and ``mamba`` modules.
 
 A cache is a list with one dict per layer: ``{"k", "v"}`` for attention,
-each tensor (B, slots, KV, hd); ``{"conv", "h"}`` for Mamba, the conv tail
-(B, kw-1, Di) and the float32 SSM state (B, Di, N).  ``prefill_chunk`` and
-``decode_step`` write into the cache they are given, in place, and return
-it.
+each tensor (B, slots, KV, hd); ``{"c", "k_rope"}`` for MLA, the latent
+(B, Smax, kv_lora_rank) and the rotary key (B, Smax, qk_rope_head_dim);
+``{"conv", "h"}`` for Mamba, the conv tail (B, kw-1, Di) and the float32
+SSM state (B, Di, N); a hybrid layer holds ``k``, ``v``, ``conv`` and
+``h``.  ``prefill_chunk`` and ``decode_step`` write into the cache they are
+given, in place, and return it.
 """
 from __future__ import annotations
 
@@ -23,12 +27,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
-from repro_torch.models import attention as attn_mod
-from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Embedding, Linear, RMSNorm
 
 Cache = List[Dict[str, torch.Tensor]]
+
+#: the aux losses of a model without MoE layers (the reference's ZERO_AUX)
+ZERO_AUX = {"load_balance": 0.0, "router_z": 0.0}
 
 
 class TiedHead(nn.Module):
@@ -87,8 +92,11 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def forward(self, tokens, *, impl: str = "auto",
-                remat: Optional[bool] = None) -> torch.Tensor:
-        """tokens (B,S) -> logits (B,S,V) float32.
+                remat: Optional[bool] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """tokens (B,S) -> (logits (B,S,V) float32, aux): ``aux`` sums the
+        MoE layers' ``load_balance`` and ``router_z`` (float32 scalars),
+        zeros (``ZERO_AUX``) without MoE layers, as the reference's.
 
         ``remat`` (default ``cfg.remat``) recomputes each layer in the
         backward instead of keeping its activations, as the reference's
@@ -97,13 +105,16 @@ class Model(nn.Module):
         remat = self.cfg.remat if remat is None else remat
         x = self.embed(self._tokens(tokens))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux = dict(ZERO_AUX)
         for layer in self.layers:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, positions, impl=impl,
-                               use_reentrant=False)
+                x, a = checkpoint(layer, x, positions, impl=impl,
+                                  use_reentrant=False)
             else:
-                x = layer(x, positions, impl=impl)
-        return self._head(x)
+                x, a = layer(x, positions, impl=impl)
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in aux}
+        return self._head(x), aux
 
     # ------------------------------------------------------------------
     # loss
@@ -113,21 +124,22 @@ class Model(nn.Module):
              remat: Optional[bool] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross-entropy over labels >= 0, plus the MoE
-        auxiliary terms (zero for dense layers), as the reference's
-        ``Model.loss``.  batch: ``tokens`` and ``labels`` (B,S).  Returns
-        (total, metrics) with ``ce``, ``load_balance``, ``router_z`` and
-        ``tokens``; the metrics are detached."""
-        logits = self.forward(batch["tokens"], impl=impl, remat=remat)
+        auxiliary terms, as the reference's ``Model.loss``.  batch:
+        ``tokens`` and ``labels`` (B,S).  Returns (total, metrics) with
+        ``ce``, ``load_balance``, ``router_z`` and ``tokens``; the metrics
+        are detached."""
+        logits, aux = self.forward(batch["tokens"], impl=impl, remat=remat)
         labels = self._tokens(batch["labels"])
         mask = (labels >= 0).float()
         safe = labels.clamp(min=0)
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, safe[..., None])[..., 0]
         ce = ((lse - ll) * mask).sum() / mask.sum().clamp(min=1.0)
-        zero = torch.zeros((), device=logits.device)
-        aux = {"load_balance": zero, "router_z": zero}
+        aux = {k: torch.as_tensor(v, dtype=torch.float32, device=logits.device)
+               for k, v in aux.items()}
         total = ce + 0.01 * aux["load_balance"] + 1e-3 * aux["router_z"]
-        metrics = {"ce": ce.detach(), **aux, "tokens": mask.sum()}
+        metrics = {"ce": ce.detach(), **{k: v.detach() for k, v in aux.items()},
+                   "tokens": mask.sum()}
         return total, metrics
 
     # ------------------------------------------------------------------
@@ -138,16 +150,17 @@ class Model(nn.Module):
     def prefill(self, tokens, *, max_seq: int, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Cache]:
         """Full-sequence pass that fills the decode cache: K/V for
-        attention layers, the conv tail and final SSM state for Mamba
-        layers.
+        attention layers, the latent and rotary key for MLA layers, the
+        conv tail and final SSM state for Mamba mixers.
 
         Returns (logits at the last position (B, vocab), cache)."""
         x = self.embed(self._tokens(tokens))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         cache = []
         for layer in self.layers:
-            x, c = tfm.block_apply(layer, x, positions=positions, impl=impl,
-                                   collect_cache=True, max_seq=max_seq)
+            x, _, c = tfm.block_apply(layer, x, positions=positions,
+                                      impl=impl, collect_cache=True,
+                                      max_seq=max_seq)
             cache.append(c)
         return self._head(x[:, -1:])[:, 0], cache
 
@@ -179,10 +192,8 @@ class Model(nn.Module):
         """use_ring=False (serving engine): absolute-position caches even
         for sliding-window layers, so chunked prefill can address slots.
         A Mamba layer's state does not depend on ``max_seq``."""
-        kw = dict(device=self.device, dtype=self.dtype)
-        return [mamba_mod.init_mamba_state(self.cfg, batch, **kw)
-                if d.kind == "mamba" else attn_mod.init_kv_cache(
-                    self.cfg, batch, max_seq, d.window if use_ring else 0, **kw)
+        return [tfm.block_cache(self.cfg, d, batch, max_seq, device=self.device,
+                                dtype=self.dtype, use_ring=use_ring)
                 for d in self.descs]
 
     # ------------------------------------------------------------------
@@ -227,23 +238,48 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig
            "final_norm.scale": t(tree["final_norm"]["scale"])}
     if not cfg.tie_embeddings:
         out["lm_head.w"] = t(tree["lm_head"]["w"])
-    names = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj"}
     kinds = cfg.layer_kinds()
     for i in range(cfg.n_layers):
         blk, j = blocks[i % p], i // p
         pre = f"layers.{i}."
         out[pre + "ln1.scale"] = t(blk["ln1"]["scale"][j])
-        if kinds[i] == "mamba":
+        if kinds[i] in ("mamba", "hybrid"):
             m = blk["mamba"]
             for a in ("in_proj", "x_proj", "out_proj"):
                 out[pre + f"mamba.{a}.w"] = t(m[a]["w"][j])
             for a in ("conv_w", "conv_b", "dt_w", "dt_b", "A_log", "D"):
                 out[pre + f"mamba.{a}"] = t(m[a][j])
+        if kinds[i] == "mamba":
             continue
         out[pre + "ln2.scale"] = t(blk["ln2"]["scale"][j])
-        for a, name in names.items():
-            out[pre + f"self_attn.{name}.w"] = t(blk["attn"][a]["w"][j])
-        for a in ("up", "gate", "down"):
-            if a in blk["ffn"]:
-                out[pre + f"mlp.{a}_proj.w"] = t(blk["ffn"][a]["w"][j])
+        attn = blk["attn"]
+        if cfg.attn_type == "mla":
+            for a, name in _MLA_NAMES.items():
+                leaf = "scale" if name.endswith("norm") else "w"
+                out[pre + f"mla_attn.{name}.{leaf}"] = t(attn[a][leaf][j])
+        else:
+            for a, name in _ATTN_NAMES.items():
+                out[pre + f"self_attn.{name}.w"] = t(attn[a]["w"][j])
+        ffn = blk["ffn"]
+        if kinds[i] == "moe":
+            out[pre + "moe.router.w"] = t(ffn["router"]["w"][j])
+            for a in ("up", "gate", "down"):
+                if a in ffn:
+                    out[pre + f"moe.{a}"] = t(ffn[a]["w"][j])
+            if "shared" in ffn:
+                out.update(_mlp_params(ffn["shared"], j, pre + "moe.shared.", t))
+        else:
+            out.update(_mlp_params(ffn, j, pre + "mlp.", t))
     return out
+
+
+#: the reference's attention parameters -> the port's projections
+_ATTN_NAMES = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj"}
+_MLA_NAMES = {"wdq": "q_down", "q_norm": "q_norm", "wuq": "q_up",
+              "wdkv": "kv_down", "kv_norm": "kv_norm", "wuk": "k_up",
+              "wuv": "v_up", "o": "o_proj"}
+
+
+def _mlp_params(tree, j: int, prefix: str, t) -> Dict[str, torch.Tensor]:
+    return {prefix + f"{a}_proj.w": t(tree[a]["w"][j])
+            for a in ("up", "gate", "down") if a in tree}

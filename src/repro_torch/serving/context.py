@@ -1,12 +1,15 @@
 """Execution context emulation (paper §5.2 / I2) for the stateful
-``self_attn`` and ``mamba`` modules.
+``self_attn``, ``mla_attn``, ``mamba`` and ``moe`` modules.
 
 Counterpart of ``repro.serving.context``.  Decode-phase attention and Mamba
 cannot be profiled from a trace alone: they need KV-cache memory and
-per-request lengths, or the conv tail and SSM state.  The builders here
-reuse the serving engine's own code — the ``Attention`` and ``Mamba``
-modules and the same functions the engine runs — parameterized by phase and
-backend, so the profiled computation is exactly the served computation.
+per-request lengths, the latent cache, or the conv tail and SSM state.  The
+builders here reuse the serving engine's own code — the ``Attention``,
+``MLA``, ``Mamba`` and ``MoE`` modules and the same functions the engine
+runs — parameterized by phase and backend, so the profiled computation is
+exactly the served computation.  A ``self_attn`` entry of an MLA config
+gets the ``mla_attn`` context; ``moe`` is profiled in prefill only (a
+decode step is a one-token prefill).
 
 ``build_context(cfg, kind, ...)`` returns a ``ModuleContext``: ``params``
 and ``input_spec(toks, reqs, ctx)`` are ``TensorSpec`` stand-ins,
@@ -14,8 +17,8 @@ and ``input_spec(toks, reqs, ctx)`` are ``TensorSpec`` stand-ins,
 seeded ``torch.Generator`` (shapes only on the ``meta`` device),
 ``module(weights)`` binds weights into the engine's module of that kind,
 and ``fn(module, *inputs)`` runs one call.  ``cached_build_context``
-memoizes the builder, as the reference's does.  The other module kinds
-(MLA, MoE, cross-attention) come with their families' slices.
+memoizes the builder, as the reference's does.  Cross-attention comes with
+the enc-dec slice.
 """
 from __future__ import annotations
 
@@ -30,7 +33,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.transformer import prefill_chunk_attention
+
+#: the engine's module of each stateful kind
+MODULES = {"self_attn": attn_mod.Attention, "mla_attn": mla_mod.MLA,
+           "mamba": mamba_mod.Mamba, "moe": moe_mod.MoE}
 
 
 class TensorSpec(NamedTuple):
@@ -79,11 +88,10 @@ class ModuleContext:
         return gen(tree)
 
     def module(self, weights: Mapping[str, torch.Tensor]) -> nn.Module:
-        """The engine's module of this kind (``Attention`` or ``Mamba``)
-        holding ``weights``."""
-        cls = mamba_mod.Mamba if self.kind == "mamba" else attn_mod.Attention
-        mod = cls(self.cfg, device=self.device,
-                  dtype=getattr(torch, self.cfg.dtype))
+        """The engine's module of this kind (``MODULES``) holding
+        ``weights``."""
+        mod = MODULES[self.kind](self.cfg, device=self.device,
+                                 dtype=getattr(torch, self.cfg.dtype))
         mod.load_state_dict(weights)
         return mod.requires_grad_(False)
 
@@ -97,17 +105,21 @@ def build_context(cfg: ModelConfig, kind: str, *, phase: str = "prefill",
     # only *latency-relevant* attributes enter the signature digest, so
     # layers of equal geometry in different models dedup (paper Table 2)
     attrs = {"kind": kind, "window": window, "d_model": d}
+    if kind == "self_attn" and cfg.attn_type == "mla":
+        kind = "mla_attn"
     if kind == "mamba":
         return _mamba_context(cfg, phase, backend, attrs, dev)
-    if kind != "self_attn" or cfg.attn_type != "gqa":
-        raise KeyError(f"no execution-context builder for module kind {kind!r} "
-                       f"(attn_type {cfg.attn_type!r}) in the port yet")
+    if kind == "mla_attn":
+        return _mla_context(cfg, phase, backend, attrs, dev)
+    if kind == "moe":
+        return _moe_context(cfg, phase, backend, attrs, dev)
+    if kind != "self_attn":
+        raise KeyError(f"no execution-context builder for module kind "
+                       f"{kind!r} in the port yet")
     hd = cfg.resolved_head_dim
     attrs.update({"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
                   "head_dim": hd, "causal": True})
-    params = {f"{name}.w": TensorSpec(shape, dt) for name, shape in (
-        ("q_proj", (d, cfg.n_heads * hd)), ("k_proj", (d, cfg.n_kv_heads * hd)),
-        ("v_proj", (d, cfg.n_kv_heads * hd)), ("o_proj", (cfg.n_heads * hd, d)))}
+    params = _param_specs(kind, cfg)
 
     if phase == "prefill":
         # engine-faithful chunked prefill: the chunk's queries attend the
@@ -151,15 +163,6 @@ def _mamba_context(cfg: ModelConfig, phase: str, backend: str,
     dtr = cfg.resolved_dt_rank
     dt, f32 = getattr(torch, cfg.dtype), torch.float32
     attrs.update({"d_inner": di, "state": st, "conv": kw, "dt_rank": dtr})
-    params = {"in_proj.w": TensorSpec((d, 2 * di), dt),
-              "conv_w": TensorSpec((kw, di), dt),
-              "conv_b": TensorSpec((di,), dt),
-              "x_proj.w": TensorSpec((di, dtr + 2 * st), dt),
-              "dt_w": TensorSpec((dtr, di), dt),
-              "dt_b": TensorSpec((di,), f32),
-              "A_log": TensorSpec((di, st), f32),
-              "D": TensorSpec((di,), f32),
-              "out_proj.w": TensorSpec((di, d), dt)}
     if phase == "prefill":
         @torch.no_grad()
         def fn(m, x):
@@ -178,8 +181,67 @@ def _mamba_context(cfg: ModelConfig, phase: str, backend: str,
             return (TensorSpec((reqs, 1, d), dt),
                     TensorSpec((reqs, kw - 1, di), dt),
                     TensorSpec((reqs, di, st), f32))
-    return ModuleContext("mamba", phase, backend, fn, params, inputs, attrs,
-                         cfg, dev)
+    return ModuleContext("mamba", phase, backend, fn,
+                         _param_specs("mamba", cfg), inputs, attrs, cfg, dev)
+
+
+def _param_specs(kind: str, cfg: ModelConfig) -> Dict[str, TensorSpec]:
+    """The weights of the engine's module of ``kind``, as TensorSpecs read
+    from one built on the meta device."""
+    mod = MODULES[kind](cfg, device="meta", dtype=getattr(torch, cfg.dtype))
+    return {k: TensorSpec(tuple(v.shape), v.dtype)
+            for k, v in mod.state_dict().items()}
+
+
+def _mla_context(cfg: ModelConfig, phase: str, backend: str,
+                 attrs: Dict[str, Any], dev: torch.device) -> ModuleContext:
+    """Prefill: the expanded-K/V attention over a fresh sequence at given
+    positions; decode: one absorbed step against a latent cache of ctx
+    rows."""
+    m, d, dt = cfg.mla, cfg.d_model, getattr(torch, cfg.dtype)
+    attrs.update({"n_heads": cfg.n_heads, "q_lora_rank": m.q_lora_rank,
+                  "kv_lora_rank": m.kv_lora_rank, "qk_nope": m.qk_nope_head_dim,
+                  "qk_rope": m.qk_rope_head_dim, "v_head": m.v_head_dim})
+    if phase == "prefill":
+        @torch.no_grad()
+        def fn(mla, x, positions):
+            return mla_mod.mla_attention(mla, x, positions=positions,
+                                         impl=backend)
+
+        def inputs(toks, reqs, ctx):
+            return (TensorSpec((reqs, toks, d), dt),
+                    TensorSpec((reqs, toks), torch.int32))
+    else:
+        @torch.no_grad()
+        def fn(mla, x, c, k_rope, lengths):
+            return mla_mod.mla_decode(mla, x, {"c": c, "k_rope": k_rope},
+                                      lengths=lengths)
+
+        def inputs(toks, reqs, ctx):
+            return (TensorSpec((reqs, 1, d), dt),
+                    TensorSpec((reqs, ctx, m.kv_lora_rank), dt),
+                    TensorSpec((reqs, ctx, m.qk_rope_head_dim), dt),
+                    TensorSpec((reqs,), torch.int32))
+    return ModuleContext("mla_attn", phase, backend, fn,
+                         _param_specs("mla_attn", cfg), inputs, attrs, cfg, dev)
+
+
+def _moe_context(cfg: ModelConfig, phase: str, backend: str,
+                 attrs: Dict[str, Any], dev: torch.device) -> ModuleContext:
+    """The dropping MoE FFN over (reqs, toks) tokens, one token a request
+    in the decode phase."""
+    d, dt = cfg.d_model, getattr(torch, cfg.dtype)
+    attrs.update({"n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                  "moe_d_ff": cfg.moe_d_ff, "n_shared": cfg.n_shared_experts})
+
+    @torch.no_grad()
+    def fn(moe, x):
+        return moe_mod.moe_ffn(moe, x)[0]
+
+    def inputs(toks, reqs, ctx):
+        return (TensorSpec((reqs, toks if phase == "prefill" else 1, d), dt),)
+    return ModuleContext("moe", phase, backend, fn, _param_specs("moe", cfg),
+                         inputs, attrs, cfg, dev)
 
 
 _CONTEXT_CACHE: "OrderedDict[Tuple, Tuple[ModelConfig, ModuleContext]]" = \

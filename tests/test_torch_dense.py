@@ -1,6 +1,8 @@
 """The rest of the dense family in the port — command-r7b, yi-9b,
 starcoder2-15b and granite-20b — and the ``chunked`` backend, against the
-JAX package on the same parameters and inputs (smoke configs, float32, CPU).
+JAX package on the same parameters and inputs (smoke configs, float32, CPU);
+the config files of these and of the MLA, MoE and hybrid families
+(tests/test_torch_{mla,moe,hybrid}.py hold their models).
 
 Tolerances: logits within 1e-4 of the largest logit.  The two frameworks
 sum their float32 matmuls in different orders, and on these configs that
@@ -41,7 +43,9 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["command-r7b", "yi-9b", "starcoder2-15b", "granite-20b"]
 MODULES = {"command-r7b": "command_r7b", "yi-9b": "yi_9b",
-           "starcoder2-15b": "starcoder2_15b", "granite-20b": "granite_20b"}
+           "starcoder2-15b": "starcoder2_15b", "granite-20b": "granite_20b",
+           "minicpm3-4b": "minicpm3_4b", "olmoe-1b-7b": "olmoe_1b_7b",
+           "hymba-1.5b": "hymba_1_5b"}
 TOL, XLA_TOL = 1e-4, 2e-5
 MAX_SEQ = 128
 
@@ -79,7 +83,7 @@ def _tokens(seed, shape, vocab):
 # configs: verbatim copies
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODULES)
 def test_config_file_is_a_copy(arch):
     """The port's config file is the reference's, apart from ``repro`` ->
     ``repro_torch`` in its import lines."""
@@ -93,7 +97,7 @@ def test_config_file_is_a_copy(arch):
     assert port == expected
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODULES)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_matches_reference(arch, smoke):
     port = get_smoke_config(arch) if smoke else get_config(arch)
@@ -119,7 +123,7 @@ def test_forward_matches_jax(pair, impl):
     expected, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)},
                              impl=REFERENCE_IMPL[impl])
     with torch.no_grad():
-        _close_logits(model(toks, impl=impl), expected)
+        _close_logits(model(toks, impl=impl)[0], expected)
 
 
 def test_bucketed_prefill_chunks_match_jax(pair):
@@ -192,7 +196,7 @@ def test_command_r7b_decode_keeps_the_reference_window_fault():
                                impl="xla")
     jfull, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)}, impl="xla")
     with torch.no_grad():
-        full = model(toks, impl="xla")
+        full = model(toks, impl="xla")[0]
     _close_logits(dec, jdec)
     jerr = float(np.abs(np.asarray(jdec) - np.asarray(jfull)[:, 96]).max())
     err = float((dec - full[:, 96]).abs().max())

@@ -40,8 +40,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     # config, the profile-then-simulate loop (core.{signature,database,
     # latency_model,journal,supervisor,profiler,plan}, parallel.roofline,
     # sim, workload, api) and the configuration-search surface (_cli,
-    # profile, sweep, optimize, each CLI's __main__) included
-    assert int(n_modules) >= 74 and bad.strip() == "[]"
+    # profile, sweep, optimize, each CLI's __main__), and the MLA, MoE and
+    # hybrid families (models.{mla,moe} and three configs) included
+    assert int(n_modules) >= 79 and bad.strip() == "[]"
     assert mains.split(",") == [f"repro_torch.{m}.__main__"
                                 for m in ("optimize", "profile", "sweep")]
 

@@ -269,7 +269,7 @@ def test_forward_matches_jax(pair, impl):
     expected, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)},
                              impl=REFERENCE_IMPL[impl])
     with torch.no_grad():
-        _close(model(toks, impl=impl), expected, TOL)
+        _close(model(toks, impl=impl)[0], expected, TOL)
 
 
 def _close_state(port_cache, jax_cache):

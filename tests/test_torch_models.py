@@ -96,11 +96,16 @@ def test_reference_impl_map():
 
 
 def test_unported_block_kind_raises():
-    moe = ModelConfig(name="moe-smoke", family="moe", n_layers=2, d_model=64,
-                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
-                      n_experts=4, top_k=2, moe_d_ff=64, dtype="float32")
+    """Enc-dec (cross-attention blocks) waits for a later slice: the model
+    and a block of it both refuse it."""
+    from repro_torch.models.transformer import Block, layer_descs
+    encdec = ModelConfig(name="encdec-smoke", family="encdec", n_layers=2,
+                         d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                         vocab_size=64, n_enc_layers=2, dtype="float32")
     with pytest.raises(NotImplementedError):
-        Model(moe, device="cpu")
+        Model(encdec, device="cpu")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        Block(encdec, layer_descs(encdec)[0], device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +119,7 @@ def test_forward_matches_jax(pair, impl):
     expected, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)},
                              impl=REFERENCE_IMPL[impl])
     with torch.no_grad():
-        _close(model(toks, impl=impl), expected)
+        _close(model(toks, impl=impl)[0], expected)
 
 
 def test_auto_backend_above_2048_tokens_runs_chunked(pair):
@@ -132,8 +137,8 @@ def test_auto_backend_above_2048_tokens_runs_chunked(pair):
     with jax.disable_jit():
         expected, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)}, impl="auto")
     with torch.no_grad():
-        auto = model(toks, impl="auto")
-        assert torch.equal(auto, model(toks, impl="chunked"))
+        auto = model(toks, impl="auto")[0]
+        assert torch.equal(auto, model(toks, impl="chunked")[0])
     expected = np.asarray(expected)
     scale = float(np.abs(expected).max())
     np.testing.assert_allclose(auto.numpy() / scale, expected / scale, atol=TOL)

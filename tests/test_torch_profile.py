@@ -48,7 +48,7 @@ from repro_torch.serving.context import build_context
 torch.set_num_threads(2)
 
 ARCHS = ["llama3-8b", "command-r7b", "yi-9b", "starcoder2-15b", "granite-20b",
-         "falcon-mamba-7b"]
+         "falcon-mamba-7b", "minicpm3-4b", "olmoe-1b-7b", "hymba-1.5b"]
 MODELS = ("llama3-8b", "command-r7b")
 HW, ORACLE, BACKEND = "cpu", "h100_analytical", "kernel"
 MEAS_Q = ("SELECT * FROM measurements ORDER BY sig_hash, hardware, phase, "
@@ -332,6 +332,25 @@ def test_plan_dedups_like_the_reference(executed):
     # the shared GQA task: one signature, both models, measured once
     shared = [t for t in plan.tasks if t.kind == "module" and len(t.owners) == 2]
     assert len(shared) == 1 and cov.dedup_frac > 0.3
+
+
+def test_plan_over_every_ported_config_dedups_like_the_reference():
+    """The plan over the nine ported smoke configs (the dense family, the
+    Mamba, MLA, MoE and hybrid blocks): per model its stateful and linear
+    entries, and the stateful and linear tasks with their owners and
+    points, as the reference plan's."""
+    with LatencyDB() as db:
+        plan = build_plan(db, [get_smoke_config(a) for a in ARCHS],
+                          backends=(BACKEND,), hardware=HW, oracle=ORACLE,
+                          sweep=QUICK_SWEEP, device="cpu")
+    with JaxLatencyDB() as jdb:
+        ref = jax_build_plan(jdb, [jax_smoke_config(a) for a in ARCHS],
+                             backends=("xla",), hardware="tpu-v5e",
+                             oracle="tpu_analytical", sweep=JAX_QUICK_SWEEP)
+    assert _structure(plan, "module", ("mm", "addmm", "bmm")) == \
+        _structure(ref, "module", ("dot_general",))
+    kinds = {e.name for _, ents in plan.entries for e in ents}
+    assert {"self_attn", "mla_attn", "mamba", "moe"} <= kinds
 
 
 def test_plan_build_is_a_deterministic_dry_run(corpus, traces, executed):

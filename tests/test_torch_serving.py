@@ -257,7 +257,8 @@ def test_chip_smoke_phases_on_cpu(capsys, tmp_path):
         calibration=dict(n=4, rate=1.0, prompt_len=64, out_len=8, seed=9),
         score=dict(n=12, rate=4.0, seed=4, scale=0.05), shared_variant="4/2/32",
         scoring=dict(seqs=(2, 4), tokens=(32, 64), chunk=32, served=(2, 32, 32)),
-        config_fn=get_smoke_config, db=str(tmp_path / "phase12.sqlite"))
+        config_fn=get_smoke_config, db=str(tmp_path / "phase12.sqlite"),
+        also=[get_smoke_config("olmoe-1b-7b")])
     cli = cs.phase_cli(tmp_path / "cli", CLI_ARGS, cpu, models=cs.PROFILE_MODELS,
                        full=False, shared_variant="4/2/32",
                        compare_db=tmp_path / "phase12.sqlite")
@@ -327,6 +328,11 @@ def test_chip_smoke_phases_on_cpu(capsys, tmp_path):
     assert loop["calls_per_step"] > 0 and loop["launch_floor_us"] is None
     assert "[12 profile->simulate]" in out and "dedup:" in out
     assert "engine self-noise" in out and "DoolySim vs the engine" in out
+    # phase 12 scores olmoe-1b-7b through the same loop and DB
+    olmoe = loop["also"]["olmoe-smoke"]
+    assert olmoe["rows"] == olmoe["planned_points"] > 0
+    assert all(np.isfinite(v) for v in olmoe["sim"].values())
+    assert "olmoe-smoke through the same loop" in out
     # phase 12's sweep: four scenarios, none failed, the served one scored
     # bare and calibrated
     swept = loop["sweep"]

@@ -36,7 +36,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3-8b", "command-r7b", "yi-9b", "starcoder2-15b", "granite-20b",
-         "falcon-mamba-7b"]
+         "falcon-mamba-7b", "minicpm3-4b", "olmoe-1b-7b", "hymba-1.5b"]
 LINEAR = ("mm", "addmm", "bmm")
 
 
