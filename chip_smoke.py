@@ -6,9 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It drives the port's main paths for llama3-8b, falcon-mamba-7b,
-granite-20b, minicpm3-4b (MLA), olmoe-1b-7b (MoE) and hymba-1.5b (hybrid)
-at full width in bf16 (random weights from seed 0) and checks them, one
-line per phase:
+granite-20b, minicpm3-4b (MLA), olmoe-1b-7b (MoE), hymba-1.5b (hybrid),
+internvl2-26b and llama4-maverick-400b-a17b (stub frontends) and
+seamless-m4t-large-v2 (enc-dec) at full width in bf16 (random weights from
+seed 0) and checks them, one line per phase:
 
 1. device  — the card's name and count, its name and power limit from
              nvidia-smi; TF32 off for matmuls and convolutions.
@@ -36,6 +37,14 @@ line per phase:
              hymba-1.5b's G = 5 (KV 5, D 64), the flash forward at
              hymba's 25/5 heads, D 64, window 1024 (S 1024, where the
              window cuts no key, so SDPA computes the same function).
+             Phase 15's shapes: decode at internvl2-26b's G = 6 and
+             llama4-maverick's G = 5 (KV 8, D 128) and seamless-m4t's
+             decoder G = 1 (KV 16, D 64); the flash forward non-causal at
+             seamless's encoder (B 8, S 4096, 16/16 heads, D 64), its
+             cross-attention prefill (Sq 128 against 4096 keys) and decode
+             (Sq 1 against 4096), causal at internvl2's and llama4's
+             prefill (S 768, 48/8 and 40/8 heads, D 128); and untimed at
+             an empty memory (Sk 0: zeros), in fp32 and bf16.
 3b. scan   — the selective-scan kernel against its plain version: the
              kernel-test cases in fp32 with h0 (5e-5) and falcon-mamba's
              shapes in bf16 (2e-2; prefill B=1 at S=256 and 1024, decode
@@ -161,7 +170,7 @@ line per phase:
              mixer and chunk or decode iteration; MLA and MoE none of their
              own), both makespans, their ratio, the median decode iteration
              and the idle share; a graph-replayed decode step against the
-             eager path (cosine >= 0.999); the ``mla_attn``, ``moe``, or
+             eager path (cosine >= 0.9999); the ``mla_attn``, ``moe``, or
              ``self_attn`` (window 1024) and ``mamba`` context points, two
              timings each by cuda_events; for hymba a 1024-token
              Model.prefill through the flash forward and the scan (float32
@@ -170,10 +179,42 @@ line per phase:
              one CLI process (quick sweep) on a copy of phase 13's merged
              DB: tasks, shared tasks, tasks in the DB and measured, task
              dedup, and the GPU-seconds spent and saved.
+15. enc-dec and frontends — ``[15 vlm]``: internvl2-26b at full width and
+             depth (48 layers, GQA 48/8/128) and ``[15 llama4]``:
+             llama4-maverick-400b-a17b at full width with its depth cut to
+             2 layers (one dense, one MoE: 128 experts top-1 and a shared
+             expert; printed as ``reduced``), each served text-only as
+             phase 14 serves (twice from graphs, the decode kernel once per
+             layer and decode iteration, graph-replayed decode against
+             eager cosine >= 0.9999), beside its weight-read bound per
+             decode step; Model.prefill of 2 requests of 256 frames and 512
+             tokens through the flash forward (once per layer) against the
+             ``chunked`` backend (cosine >= 0.999); its ``self_attn`` (and
+             llama4's ``moe``) context points, two timings each; peak
+             memory printed at each step.  ``[15 encdec]``:
+             seamless-m4t-large-v2 at full width and depth (24 encoder + 24
+             decoder layers), which the engine refuses as the reference's
+             does: Model.prefill of 8 requests of 4096 frames and 128
+             tokens (the flash forward once per encoder layer and twice per
+             decoder layer), then 32 decode steps (the decode kernel and the
+             flash forward at Sq = 1 once per decoder layer each), all
+             against the ``chunked`` backend (cosine >= 0.999): the encoder,
+             prefill and median decode-step times beside the decode step's
+             bound; the ``cross_attn`` context points (prefill toks {64,
+             256} x reqs {1, 8} x ctx {0, 1024, 4096}, decode reqs {1, 8} x
+             ctx {1024, 4096}), two timings each.  ``[15 plan]``: the
+             twelve corpus models at full width in one CLI process (quick
+             sweep, ``kernel`` and ``chunked`` backends) on a copy of phase
+             13's merged DB: per-model Table-2 rows, the task dedup beside
+             the reference's 83.7 % (smoke, dry run) and the paper's 56.4 %,
+             the GPU-seconds spent and saved.
 A JSON line then lists every kernel with its launches on the main paths,
 its largest error against its plain version, and its times.
-``python3 chip_smoke.py --profile-simulate`` runs phase 12 alone, and
-``python3 chip_smoke.py --cli MODULE ARGS...`` runs one CLI step of phase 13.
+``python3 chip_smoke.py --profile-simulate`` runs phase 12 alone,
+``python3 chip_smoke.py --cli MODULE ARGS...`` runs one CLI step of phase 13,
+and ``python3 chip_smoke.py --phase15`` runs phases 1-3 and 15 (its plan on
+the merged DB that phase 13 of a whole run left in build/; it exits 1
+without one).
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises and
 the script exits non-zero; without a CUDA device it exits 1 at once.  Each
@@ -201,7 +242,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api import (ProfileStore, SchedSpec,  # noqa: E402
                               WorkloadSpec, expand_grid)
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (CORPUS_ARCHS, get_config,  # noqa: E402
+                                 get_smoke_config)
 from repro_torch.core.profiler import QUICK_SWEEP, SweepConfig  # noqa: E402
 from repro_torch.core.signature import fingerprint  # noqa: E402
 from repro_torch.parallel.roofline import default_hardware  # noqa: E402
@@ -279,6 +321,22 @@ FAMILY_PREFILL_TOKS = {"mla_attn": (64, 256), "moe": (8, 64, 256),
                        "self_attn": (64, 256), "mamba": (64, 256)}
 FAMILY_REQS, FAMILY_CTX = (1, 8), (512, 2048)
 PLAN_MODELS = ("llama3-8b", "command-r7b", MLA, MOE, HYBRID)
+#: phase 15: the stub frontends and the enc-dec model; llama4's depth cut
+#: (one dense and one MoE layer of its 48: the whole model is about 800 GB
+#: in bf16); the frontend prefill (requests, tokens after the frames); the
+#: enc-dec run (requests, prompt tokens, decode steps; frames are the
+#: config's n_frontend_tokens); the cross_attn context points; the corpus
+VLM, LLAMA4, SEAMLESS = ("internvl2-26b", "llama4-maverick-400b-a17b",
+                         "seamless-m4t-large-v2")
+LLAMA4_LAYERS = 2
+FRONT_PREFILL = (2, 512)
+ENCDEC_RUN = (8, 128, 32)
+CROSS_PREFILL_TOKS, CROSS_REQS = (64, 256), (1, 8)
+CROSS_PREFILL_CTX, CROSS_DECODE_CTX = (0, 1024, 4096), (1024, 4096)
+CORPUS_BACKENDS = ("kernel", "chunked")
+#: the reference's corpus task dedup (12 smoke models x 2 backends, dry run;
+#: CHANGES.md) and the paper's profiling GPU-hours saved (Table 2)
+REFERENCE_DEDUP, PAPER_SAVED = 0.837, 0.564
 #: phase 12: the sweep brackets every point the engine asks for (chunk
 #: buckets 8-256 at one request against the full 2048-slot cache, the decode
 #: batch of 8 rows at ctx 2048); 20 repeats, as cuda_events replays each
@@ -305,6 +363,7 @@ LAUNCHES_TAG = "cli kernel launches: "
 #: measure, and the most their median relative difference may be
 PHASE12_DB = CLI_DIR.parent / "phase12.sqlite"
 PHASE14_DB = CLI_DIR.parent / "phase14.sqlite"
+PHASE15_DB = CLI_DIR.parent / "phase15.sqlite"
 AGREE_LIMIT = 0.10
 
 #: the libraries whose bf16 path runs on the tensor cores, and the SASS
@@ -647,13 +706,15 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
     return res
 
 
-def phase_kernels(cfg, device, gqa_cfg=None, family_cfgs=()) -> dict:
+def phase_kernels(cfg, device, gqa_cfg=None, family_cfgs=(),
+                  flash_shapes=()) -> dict:
     """Each kernel against its plain version; returns, per kernel, the
     largest error over all cases and the main path's times.  Decode attention
     is also timed at ``gqa_cfg``'s serving shape (default granite-20b: a GQA
     group of 48, run as two slices of the group) and at the serving shape
     of each attention config of ``family_cfgs``; the flash forward also at
-    the prefill shape of each of them with a sliding window."""
+    the prefill shape of each of them with a sliding window, and at each of
+    ``flash_shapes`` (``frontend_flash_shapes``)."""
     gqa_cfg = gqa_cfg or get_config(GRANITE)
     rng = np.random.default_rng(0)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -714,9 +775,21 @@ def phase_kernels(cfg, device, gqa_cfg=None, family_cfgs=()) -> dict:
             main["flash_attention_fwd"]["timed"][
                 f"{fc.name} B=1 S={PREFILL_LEN} {fc.n_heads}/{fkv} heads D={fd} "
                 f"window {fc.sliding_window}"] = res
+    for label, fb, sq, sk, fh, fkv, fd, causal in flash_shapes:
+        main["flash_attention_fwd"]["timed"].setdefault(
+            f"B=1 S={PREFILL_LEN} {cfg.n_heads}/{kv} heads D={hd}",
+            dict(main["flash_attention_fwd"]))
+        res = _flash_case(rng, fb, sq, sk, fh, fkv, fd, causal, 0, bf16, device,
+                          True)
+        errs["flash_attention_fwd"].append(res)
+        main["flash_attention_fwd"]["timed"][label] = res
     errs["flash_attention_fwd"].append(_flash_case(
         rng, 1, PREFILL_LEN, PREFILL_LEN, cfg.n_heads, kv, hd, True, WINDOW,
         bf16, device, False))
+    # an empty memory (a cross_attn point at ctx 0): zero key tiles, zeros
+    for dtype in (torch.float32, bf16):
+        errs["flash_attention_fwd"].append(_flash_case(
+            rng, 2, 33, 0, 4, 2, 64, False, 0, dtype, device, False))
     errs["flash_attention_bwd"].append(_flash_bwd_case(
         rng, TRAIN_BATCH // MICROBATCHES, TRAIN_SEQ, TRAIN_SEQ, cfg.n_heads, kv,
         hd, True, WINDOW, bf16, device, False))
@@ -851,14 +924,24 @@ def _idle_share(engine, requests, device):
     token.  None off the card."""
     if device.type != "cuda":
         return None
-    from torch.profiler import DeviceType, ProfilerActivity, profile
     plan = IterationPlan([], list(requests))
     engine.execute(plan)
     plain_wall = engine.execute(plan)
+    wall, busy_s, n, top = _profile_busy(lambda: engine.execute(plan))
+    return {"wall_s": wall, "plain_wall_s": plain_wall, "busy_s": busy_s,
+            "kernels": n, "idle_share": 1.0 - busy_s / wall,
+            "idle_share_unprofiled": 1.0 - busy_s / plain_wall, "top": top}
+
+
+def _profile_busy(fn) -> tuple:
+    """``fn()`` under torch.profiler: (its return value, the union of its
+    kernels' device intervals in s, their number, the five kernels that
+    take most of the busy time with their ms)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = engine.execute(plan)
+        out = fn()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    _require(bool(kernels), "the profiler saw the decode iteration's kernels")
+    _require(bool(kernels), "the profiler saw the call's kernels")
     busy, end = 0.0, -math.inf
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         if b > end:
@@ -869,11 +952,8 @@ def _idle_share(engine, requests, device):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                       - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    busy_s = busy * 1e-6
-    return {"wall_s": wall, "plain_wall_s": plain_wall, "busy_s": busy_s,
-            "kernels": len(kernels), "idle_share": 1.0 - busy_s / wall,
-            "idle_share_unprofiled": 1.0 - busy_s / plain_wall,
-            "top": [(name[:60], us * 1e-3) for name, us in top]}
+    return out, busy * 1e-6, len(kernels), [(name[:60], us * 1e-3)
+                                            for name, us in top]
 
 
 def _serve(cfg, device, runs: int = 2) -> dict:
@@ -1431,7 +1511,7 @@ def phase_tracer(pairs, device) -> dict:
 def _graph_vs_eager(engine, device):
     """One decode step on the engine's final cache, replayed from its decode
     graph and run eagerly (the kernel backend), each on the same cache:
-    the least cosine over rows of the logits (>= 0.999).  None off the
+    the least cosine over rows of the logits (>= 0.9999).  None off the
     card, where the engine has no graphs."""
     if device.type != "cuda":
         return None
@@ -1447,8 +1527,8 @@ def _graph_vs_eager(engine, device):
     eager = engine._decode_eager(toks)
     restore()
     cos = _cosine_rows(replayed, eager)
-    _require(bool((cos >= 0.999).all()), f"graph-replayed decode logits against "
-             f"the eager path: cosine >= 0.999 (min {float(cos.min()):.6f})")
+    _require(bool((cos >= 0.9999).all()), f"graph-replayed decode logits against "
+             f"the eager path: cosine >= 0.9999 (min {float(cos.min()):.6f})")
     return float(cos.min())
 
 
@@ -1461,32 +1541,53 @@ def _family_kinds(cfg) -> list:
     return [("self_attn", cfg.sliding_window), ("mamba", 0)]
 
 
-def _family_points(cfg, device, kind: str, window: int) -> dict:
-    """The context's points through the oracle, two timings each: prefill
-    at FAMILY_PREFILL_TOKS x FAMILY_REQS on a fresh sequence, decode at
-    FAMILY_REQS x FAMILY_CTX with every row's cache full up to ctx."""
+def _context_points(cfg, device, kind: str, prefill: list, decode: list,
+                    window: int = 0) -> dict:
+    """The ``kind`` context's (toks, reqs, ctx) points, prefill and decode,
+    through the oracle, two timings each, on one module of drawn weights;
+    an attention decode point's rows full up to ctx."""
     cuda = device.type == "cuda"
     oracle = cuda_events if cuda else cpu_wallclock
     gen = torch.Generator(device=device).manual_seed(0)
     out = {}
-    for phase in phases_for(kind, cfg):
+    for phase, points in (("prefill", prefill), ("decode", decode)):
+        if not points:
+            continue
         mc = build_context(cfg, kind, phase=phase, backend="kernel",
                            window=window, device=device)
         module = mc.module(mc.materialize(mc.params, gen))
-        points = ([(t, r, 0) for t in FAMILY_PREFILL_TOKS[kind] for r in FAMILY_REQS]
-                  if phase == "prefill" else
-                  [(1, r, c) for r in FAMILY_REQS for c in FAMILY_CTX])
         for toks, reqs, ctx in points:
             inputs = mc.materialize(mc.abstract_inputs(toks, reqs, ctx), gen)
-            if phase == "decode" and kind != "mamba":
-                inputs[-1].fill_(ctx - 1)
+            if phase == "decode" and kind in ("self_attn", "mla_attn"):
+                inputs[-1].fill_(ctx - 1)             # the lengths
             args = (module, *inputs)
             out[(phase, toks, reqs, ctx)] = [
                 oracle(mc.fn, args, device=device) if cuda else oracle(mc.fn, args)
                 for _ in range(2)]
+            del inputs, args
         del module
-    _release(device)
+        _release(device)
     return out
+
+
+def _print_points(kind: str, points: dict, device, peak: str = None):
+    print(f"  {kind} points, {'cuda_events' if device.type == 'cuda' else 'cpu_wallclock'}"
+          f", two timings each{'' if peak is None else f' (peak memory {peak})'}: "
+          + "; ".join(f"{ph} toks={t} reqs={r} ctx={c}: "
+                      + ", ".join(f"{x * 1e6:.1f}" for x in xs) + " us"
+                      for (ph, t, r, c), xs in points.items()))
+
+
+def _family_points(cfg, device, kind: str, window: int = 0) -> dict:
+    """The ``kind`` context's points (``_context_points``): prefill at
+    FAMILY_PREFILL_TOKS x FAMILY_REQS on a fresh sequence, decode at
+    FAMILY_REQS x FAMILY_CTX."""
+    decode = "decode" in phases_for(kind, cfg)
+    return _context_points(
+        cfg, device, kind,
+        [(t, r, 0) for t in FAMILY_PREFILL_TOKS[kind] for r in FAMILY_REQS],
+        [(1, r, c) for r in FAMILY_REQS for c in FAMILY_CTX] if decode else [],
+        window=window)
 
 
 def _expected_launches(cfg, decode_iters: int, chunks: int, cuda: bool) -> tuple:
@@ -1549,12 +1650,13 @@ def _family_prefill(cfg, device) -> dict:
             "scan_launches": counts[3], "cosine": cos, "fp32_cosine": cos32}
 
 
-def phase_family(cfg, device, tag: str) -> dict:
-    """Phase 14 for one family at full width and depth: the Engine serves
-    the phase-4 requests twice from CUDA graphs (launches as
-    ``_expected_launches``), a graph-replayed decode step against the eager
-    path, the stateful modules' context points; for a config with SSM state
-    also a full-sequence prefill through the kernels."""
+def _serve_family(cfg, device, tag: str, *, depth: str = "full width and depth",
+                  bound_ms: float = None):
+    """Phase 14's serving of one model: the Engine serves the phase-4
+    requests twice from CUDA graphs (launches as ``_expected_launches``),
+    then a graph-replayed decode step against the eager path; ``bound_ms``,
+    the decode step's least time, is printed beside the median decode
+    iteration.  Returns (results, engine): the caller releases the engine."""
     cuda = device.type == "cuda"
     run = _serve(cfg, device)
     engine, requests, decode_iters = run["engine"], run["requests"], run["decode_iters"]
@@ -1565,45 +1667,52 @@ def phase_family(cfg, device, tag: str) -> dict:
              f"flash bwd, scan) {counts} == {expect}")
     card = _card(device)
     n_params = sum(p.numel() for p in engine.model.parameters())
-    print(f"[14 {tag}] {cfg.name}, {cfg.n_layers} layers "
+    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers "
           f"({', '.join(sorted(set(cfg.layer_kinds())))}), {n_params / 1e9:.3f} B "
-          f"parameters, {cfg.dtype}, full width and depth: {len(requests)} "
+          f"parameters, {cfg.dtype}, {depth}: {len(requests)} "
           f"requests, prompts {sorted(run['lens'].tolist())}, served "
           f"{len(run['runs'])} times, {run['runs'][0]['iterations']} iterations "
           f"({chunks} prefill chunks, {decode_iters} with decodes), peak memory "
           f"{run['peak'] / 2**30:.2f} GiB, kernel launches (decode, flash fwd, "
           f"flash bwd, scan) {counts} a run; {card}")
-    _print_runs(f"14 {tag}", run, card)
+    _print_runs(tag, run, card)
     decode_ms = [r["decode_ms"] for r in run["runs"]]
     cos = _graph_vs_eager(engine, device)
+    bound = ("" if bound_ms is None else f" against a weight-read bound of "
+             f"{bound_ms:.3f} ms (every weight but the embedding table at 3.35 TB/s)")
     print(f"  median decode-only iteration {', '.join(f'{ms:.3f}' for ms in decode_ms)}"
-          f" ms; graph-replayed decode step against the eager path: "
+          f" ms{bound}; graph-replayed decode step against the eager path: "
           + ("n/a (no graphs off the card)" if cos is None else
              f"min cosine {cos:.6f}"))
-    summary = _run_summary(run)
-    del engine, run
+    out = {"launches": counts, "decode_launches": counts[0],
+           "scan_launches": counts[3], "chunks": chunks, "graph_cosine": cos,
+           "n_params": n_params, "decode_ms": decode_ms, **_run_summary(run)}
+    return out, engine
+
+
+def phase_family(cfg, device, tag: str) -> dict:
+    """Phase 14 for one family at full width and depth: ``_serve_family``,
+    then the stateful modules' context points; for a config with SSM state
+    also a full-sequence prefill through the kernels."""
+    out, engine = _serve_family(cfg, device, f"14 {tag}")
+    del engine
     _release(device)
     points = {}
     for kind, window in _family_kinds(cfg):
         points[kind] = _family_points(cfg, device, kind, window)
-        print(f"  {kind}{f' (window {window})' if window else ''} points, "
-              f"{'cuda_events' if cuda else 'cpu_wallclock'}, two timings each: "
-              + "; ".join(f"{ph} toks={t} reqs={r} ctx={c}: "
-                          + ", ".join(f"{x * 1e6:.1f}" for x in xs) + " us"
-                          for (ph, t, r, c), xs in points[kind].items()))
-    out = {"launches": counts, "decode_launches": counts[0],
-           "scan_launches": counts[3], "chunks": chunks, "graph_cosine": cos,
-           "n_params": n_params, "decode_ms": decode_ms, "points": points,
-           **summary}
+        _print_points(f"{kind}{f' (window {window})' if window else ''}",
+                      points[kind], device)
+    out["points"] = points
     if cfg.ssm_state and cfg.attn_type == "gqa":
         out["prefill"] = _family_prefill(cfg, device)
     return out
 
 
 def phase_family_plan(cli_args, device, *, models, full: bool, base_db: Path,
-                      db: Path) -> dict:
+                      db: Path, backends=(PROFILE_BACKEND,),
+                      tag: str = "14 plan") -> dict:
     """Phase 14's plan: ``models`` profiled in one process through the
-    profile CLI (quick sweep, kernel backend) on a copy of ``base_db``
+    profile CLI (quick sweep, ``backends``) on a copy of ``base_db``
     (phase 13's merged DB, which holds llama3-8b's and command-r7b's
     points): the plan's tasks, shared tasks, tasks satisfied by the DB and
     measured, and the profiling GPU-seconds, each point at the sweep's
@@ -1612,10 +1721,10 @@ def phase_family_plan(cli_args, device, *, models, full: bool, base_db: Path,
     for old in db.parent.glob(db.name + "*"):
         old.unlink()
     shutil.copyfile(base_db, db)
-    res = _ok(_cli("14 plan", "profile", "run", "--models", ",".join(models),
-                   "--backends", PROFILE_BACKEND, "--sweep", "quick",
+    res = _ok(_cli(tag, "profile", "run", "--models", ",".join(models),
+                   "--backends", ",".join(backends), "--sweep", "quick",
                    *(["--full"] if full else []), *cli_args, "--db", db.name,
-                   "--json", "-", cwd=db.parent), "14 plan")
+                   "--json", "-", cwd=db.parent), tag)
     rep = json.loads(res["stdout"])
     cov = rep["coverage"]
     hardware = cov["hardware"]
@@ -1636,13 +1745,14 @@ def phase_family_plan(cli_args, device, *, models, full: bool, base_db: Path,
     by_kind = {}
     for sig in new:
         k = kinds.get(sig, "?")
-        k = k if k in ("self_attn", "mla_attn", "moe", "mamba") else "op"
+        k = k if k in ("self_attn", "cross_attn", "mla_attn", "moe",
+                       "mamba") else "op"
         by_kind[k] = by_kind.get(k, 0.0) + cost[sig]
     _require(rep["measured"] > 0 and len(new) == rep["measured"],
              f"the plan measures the new models' tasks ({rep['measured']}, "
              f"{len(new)} new signatures)")
-    print(f"[14 plan] {', '.join(models)} ({'full width' if full else 'smoke'}, "
-          f"{PROFILE_BACKEND} backend, quick sweep, {hardware}) on a copy of "
+    print(f"[{tag}] {', '.join(models)} ({'full width' if full else 'smoke'}, "
+          f"{' and '.join(backends)} backend, quick sweep, {hardware}) on a copy of "
           f"{base_db.name}: {cov['naive_tasks']} tasks model by model, "
           f"{cov['plan_tasks']} in the plan ({100 * cov['dedup_frac']:.1f} % task "
           f"dedup), {cov['shared_tasks']} shared between models, "
@@ -1652,13 +1762,272 @@ def phase_family_plan(cli_args, device, *, models, full: bool, base_db: Path,
     print(f"  profiling GPU-seconds at {QUICK_SWEEP.repeats} repeats a point: "
           f"{spent_new:.4f} s on the tasks this run measured ("
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(by_kind.items()))
-          + f"); the five models {spent:.4f} s, saved {naive - spent:.4f} s of "
+          + f"); the {len(models)} models {spent:.4f} s, saved {naive - spent:.4f} s of "
           f"{naive:.4f} s that per-model profiling would spend")
     return {"coverage": cov, "measured": rep["measured"],
             "rows": rep["rows_written"], "spent_new_s": spent_new,
             "spent_s": spent, "naive_s": naive, "saved_s": naive - spent,
             "by_kind_s": by_kind, "wall_s": res["wall_s"],
             "decode_launches": res["counts"][0], "flash_launches": res["counts"][1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: enc-dec and stub frontends, and the twelve-model corpus plan
+# ---------------------------------------------------------------------------
+
+def frontend_flash_shapes(vlm, llama4, encdec) -> list:
+    """Phase 15's flash-forward shapes as (label, b, sq, sk, h, kv, d,
+    causal): the frontends' prefill (frames then tokens, causal), the
+    enc-dec encoder (non-causal), its cross-attention prefill and decode
+    against the encoder's memory."""
+    n, toks = FRONT_PREFILL
+    out = []
+    for c in (vlm, llama4):
+        s, h, kv, d = (c.n_frontend_tokens + toks, c.n_heads, c.n_kv_heads,
+                       c.resolved_head_dim)
+        out.append((f"{c.name} prefill B={n} S={s} {h}/{kv} heads D={d}",
+                    n, s, s, h, kv, d, True))
+    b, prompt, _ = ENCDEC_RUN
+    f, h, kv, d = (encdec.n_frontend_tokens, encdec.n_heads, encdec.n_kv_heads,
+                   encdec.resolved_head_dim)
+    return out + [
+        (f"{encdec.name} encoder B={b} S={f} {h}/{kv} heads D={d} non-causal",
+         b, f, f, h, kv, d, False),
+        (f"{encdec.name} cross prefill B={b} Sq={prompt} Sk={f}", b, prompt, f,
+         h, kv, d, False),
+        (f"{encdec.name} cross decode B={b} Sq=1 Sk={f}", b, 1, f, h, kv, d, False)]
+
+
+def _peak_gib(device) -> str:
+    if device.type != "cuda":
+        return "n/a (cpu)"
+    return f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+
+
+def _weight_bytes(model, skip=("embed.",)) -> int:
+    """Bytes of the weights a decode step reads: every parameter but those
+    under ``skip`` (a step gathers a few rows of the embedding table)."""
+    return sum(p.numel() * p.element_size() for name, p in model.named_parameters()
+               if not name.startswith(skip))
+
+
+def _frontend_prefill(model, cfg, device) -> dict:
+    """Model.prefill of FRONT_PREFILL's requests, the config's frames then
+    the tokens, through the flash forward (once per layer) against the
+    ``chunked`` backend on the same weights (cosine >= 0.999)."""
+    cuda = device.type == "cuda"
+    n, toks = FRONT_PREFILL
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, cfg.vocab_size, (n, toks))
+    frames = _randn(rng, (n, cfg.n_frontend_tokens, cfg.d_model), model.dtype,
+                    device) * 0.02
+    _zero_counts()
+    t0 = time.perf_counter()
+    lk, _ = model.prefill(tokens, frames=frames, max_seq=MAX_SEQ, impl="kernel")
+    if cuda:
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    expect = (0, cfg.n_layers, 0, 0) if cuda else (0, 0, 0, 0)
+    _require(counts == expect, f"frontend prefill launches (decode, flash fwd, "
+             f"flash bwd, scan) {counts} == {expect}")
+    _require(bool(torch.isfinite(lk).all()), "frontend prefill logits are finite")
+    lc, _ = model.prefill(tokens, frames=frames, max_seq=MAX_SEQ, impl="chunked")
+    cos = float(_cosine_rows(lk, lc).min())
+    _require(cos >= 0.999, f"frontend prefill kernel vs chunked cosine >= 0.999 "
+             f"({cos:.6f})")
+    print(f"  Model.prefill of {n} requests, {cfg.n_frontend_tokens} frames + "
+          f"{toks} tokens, in {wall:.4f} s (first call, host clock): kernel "
+          f"launches (decode, flash fwd, flash bwd, scan) {counts}; last logits "
+          f"kernel vs chunked min cosine {cos:.6f}; peak memory {_peak_gib(device)}")
+    return {"launches": counts, "flash_launches": counts[1], "cosine": cos,
+            "wall_s": wall}
+
+
+def phase_frontend(cfg, device, tag: str, *, layers: int = 0,
+                   kinds=("self_attn",)) -> dict:
+    """Phase 15 for a stub-frontend model, text-only on the engine as the
+    reference's engine serves it: ``_serve_family`` (graph-replayed decode
+    against eager at cosine >= 0.9999) beside the decode step's weight-read
+    bound, a prefill with frames against the ``chunked`` backend, and the
+    ``kinds`` context points.  ``layers`` cuts the depth (printed as
+    ``reduced``)."""
+    full_layers = cfg.n_layers
+    if layers:
+        cfg = cfg.with_overrides(n_layers=layers)
+    depth = (f"full width, reduced: n_layers {full_layers} → {cfg.n_layers}"
+             if layers else "full width and depth")
+    bound_ms = _weight_bytes(Model(cfg, device="meta", generator=torch.Generator())
+                             ) / HBM_BYTES_PER_S * 1e3
+    out, engine = _serve_family(cfg, device, f"15 {tag}", bound_ms=bound_ms,
+                                depth=f"{depth}, frontend {cfg.frontend} "
+                                "served text-only")
+    out["prefill"] = _frontend_prefill(engine.model, cfg, device)
+    del engine
+    _release(device)
+    cuda = device.type == "cuda"
+    points = {}
+    for kind in kinds:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        points[kind] = _family_points(cfg, device, kind)
+        _print_points(kind, points[kind], device, _peak_gib(device))
+    return {**out, "points": points, "bound_ms": bound_ms,
+            "flash_launches": out["prefill"]["flash_launches"],
+            "layers": (full_layers, cfg.n_layers)}
+
+
+def _encdec_bound_ms(model, cache) -> float:
+    """A decode step's least time: the decoder's weights and the head (not
+    the encoder, not the embedding table) and every layer's encoder memory
+    read once, at 3.35 TB/s."""
+    nbytes = _weight_bytes(model, skip=("embed.", "enc_layers.", "enc_norm."))
+    nbytes += sum(c[k].numel() * c[k].element_size() for c in cache
+                  for k in ("enc_k", "enc_v"))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_encdec(cfg, device) -> dict:
+    """Phase 15 for the enc-dec model at full width and depth: the engine
+    refuses it, as the reference's does; Model.prefill of ENCDEC_RUN's
+    requests (the config's frames, the prompts) and its decode steps
+    through the kernels, each step's logits against the ``chunked``
+    backend's on the same weights and caches (cosine >= 0.999); the
+    encoder, prefill and median decode-step times beside the step's bound;
+    then the ``cross_attn`` context points."""
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    try:
+        Engine(cfg, sched_config=SCHED, max_seq=MAX_SEQ, device=device)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    _require(refused, f"the engine refuses {cfg.name} (enc-dec), as the reference's")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    model = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(0)
+                  ).requires_grad_(False)
+    n, prompt, steps = ENCDEC_RUN
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (n, prompt))
+    frames = _randn(rng, (n, cfg.n_frontend_tokens, cfg.d_model), model.dtype,
+                    device) * 0.02
+    new = rng.integers(0, cfg.vocab_size, (steps, n))
+    max_seq = prompt + steps
+    with torch.no_grad():
+        model.encode(frames, impl="kernel")                  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        model.encode(frames, impl="kernel")
+        sync()
+        enc_s = time.perf_counter() - t0
+    model.prefill(tokens, frames=frames, max_seq=max_seq, impl="kernel")
+    sync()                                                   # warm-up
+    _zero_counts()
+    t0 = time.perf_counter()
+    lk, cache = model.prefill(tokens, frames=frames, max_seq=max_seq, impl="kernel")
+    sync()
+    prefill_s = time.perf_counter() - t0
+    counts = _counts()
+    expect = (0, cfg.n_enc_layers + 2 * cfg.n_layers, 0, 0) if cuda else (0, 0, 0, 0)
+    _require(counts == expect, f"{cfg.name} prefill launches (decode, flash fwd, "
+             f"flash bwd, scan) {counts} == {expect}")
+    lc, ccache = model.prefill(tokens, frames=frames, max_seq=max_seq,
+                               impl="chunked")
+    cosines = [float(_cosine_rows(lk, lc).min())]
+    step_ms = []
+    _zero_counts()
+    for i in range(steps):
+        lengths = torch.full((n,), prompt + i, dtype=torch.int32, device=device)
+        sync()                      # the chunked step's work is not timed
+        t0 = time.perf_counter()
+        lk, cache = model.decode_step(cache, new[i], lengths, impl="kernel")
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        _require(bool(torch.isfinite(lk).all()), "decode logits are finite")
+        lc, ccache = model.decode_step(ccache, new[i], lengths, impl="chunked")
+        cosines.append(float(_cosine_rows(lk, lc).min()))
+    decode_counts = _counts()
+    busy = None
+    if cuda:                  # the last step again, under the profiler
+
+        def step():
+            t0 = time.perf_counter()
+            model.decode_step(cache, new[-1], lengths, impl="kernel")
+            sync()
+            return time.perf_counter() - t0
+        busy = _profile_busy(step)
+    dexpect = (steps * cfg.n_layers, steps * cfg.n_layers, 0, 0) if cuda \
+        else (0, 0, 0, 0)
+    _require(decode_counts == dexpect, f"{cfg.name} decode launches {decode_counts}"
+             f" == {dexpect}")
+    _require(min(cosines) >= 0.999, f"{cfg.name} kernel vs chunked logits cosine "
+             f">= 0.999 (min {min(cosines):.6f})")
+    bound_ms = _encdec_bound_ms(model, cache)
+    n_params = sum(p.numel() for p in model.parameters())
+    median = sorted(step_ms)[len(step_ms) // 2]
+    card = _card(device)
+    print(f"[15 encdec] {cfg.name}, {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, full width and depth, {n_params / 1e9:.3f} B "
+          f"parameters, {cfg.dtype}; the engine refuses enc-dec, as the "
+          f"reference's: {n} requests of {cfg.n_frontend_tokens} frames and "
+          f"{prompt} tokens, then {steps} decode steps; encoder {enc_s * 1e3:.3f}"
+          f" ms, prefill {prefill_s * 1e3:.3f} ms (host clock, each the "
+          f"second call), median decode step {median:.3f} ms against a "
+          f"{bound_ms:.3f} ms bound (decoder weights, head and the encoder "
+          f"memory at 3.35 TB/s); kernel launches (decode, flash fwd, flash bwd, "
+          f"scan) prefill {counts}, decode {decode_counts}; logits kernel vs "
+          f"chunked min cosine {min(cosines):.6f} over the prefill and every "
+          f"step; peak memory {_peak_gib(device)}; {card}")
+    if busy is not None:
+        wall, busy_s, n_k, top = busy
+        print(f"  one decode step under torch.profiler {wall * 1e3:.3f} ms, "
+              f"kernels busy {busy_s * 1e3:.3f} ms over {n_k} device "
+              f"activities: device idle share {1 - busy_s / wall:.4f} "
+              f"(eager: the host launches each op); most busy: "
+              + ", ".join(f"{k} {ms:.3f} ms" for k, ms in top))
+    del model, cache, ccache
+    _release(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    points = _context_points(
+        cfg, device, "cross_attn",
+        [(t, r, c) for t in CROSS_PREFILL_TOKS for r in CROSS_REQS
+         for c in CROSS_PREFILL_CTX],
+        [(1, r, c) for r in CROSS_REQS for c in CROSS_DECODE_CTX])
+    _print_points("cross_attn", points, device, _peak_gib(device))
+    return {"prefill_launches": counts, "decode_launch_counts": decode_counts,
+            "decode_busy": busy,
+            "decode_launches": decode_counts[0],
+            "flash_launches": counts[1] + decode_counts[1],
+            "encoder_ms": enc_s * 1e3, "prefill_ms": prefill_s * 1e3,
+            "step_ms": step_ms, "median_step_ms": median, "bound_ms": bound_ms,
+            "min_cosine": min(cosines), "points": points}
+
+
+def phase_corpus_plan(cli_args, device, *, models, full: bool, base_db: Path,
+                      db: Path) -> dict:
+    """The corpus models planned and profiled in one CLI process at both
+    CORPUS_BACKENDS (phase 14's plan, ``[15 plan]``), with the per-model
+    Table-2 rows and the task dedup beside the reference's and the
+    paper's."""
+    out = phase_family_plan(cli_args, device, models=models, full=full,
+                            base_db=base_db, db=db, backends=CORPUS_BACKENDS,
+                            tag="15 plan")
+    cov = out["coverage"]
+    for m in cov["models"]:
+        print(f"  {m['model']}/{m['backend']}: {m['n_entries']} entries, "
+              f"{m['n_tasks']} tasks, {m['n_satisfied']} satisfied, "
+              f"{m['n_shared']} shared, {m['n_to_measure']} to measure")
+    saved = out["saved_s"] / out["naive_s"] if out["naive_s"] else 0.0
+    print(f"  corpus task dedup {100 * cov['dedup_frac']:.1f} % (reference "
+          f"{100 * REFERENCE_DEDUP:.1f} % on the smoke corpus, dry run; paper "
+          f"{100 * PAPER_SAVED:.1f} % fewer profiling GPU-hours); GPU-seconds "
+          f"{out['spent_s']:.4f} spent, {out['saved_s']:.4f} saved "
+          f"({100 * saved:.1f} % of {out['naive_s']:.4f}) against each model "
+          f"profiled alone")
+    return out
 
 
 def _mapes(cmp: dict) -> str:
@@ -2251,24 +2620,29 @@ def phase_cli(workdir: Path, cli_args: list, device, *, models, full: bool,
 def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                  train: dict, mamba_serving: dict, mamba_prefill: dict,
                  loop: dict, cli: dict, families: dict = None,
-                 plan: dict = None) -> dict:
+                 plan: dict = None, phase15: dict = None) -> dict:
     """Launches are counted on the main paths: decode while serving llama3
     (one run), granite-20b and phase 14's families (one run each), over
     phase 12's loop (olmoe-1b-7b's scoring included) and sweep scoring and
     over the CLI processes of phases 13 and 14, the flash forward over the
     prefills (hymba-1.5b's too), the train steps, the loop and the CLIs, the
     backward over the train steps, the scan while serving falcon-mamba and
-    hymba-1.5b (one run each) and over their prefills."""
+    hymba-1.5b (one run each) and over their prefills; phase 15's paths
+    (``phase15``: its frontends' serving runs and prefills, the enc-dec
+    prefill and decode steps, the corpus plan's CLI process) add their
+    decode and flash-forward launches."""
     families, plan = families or {}, plan or {}
     fam = list(families.values())
+    p15 = list((phase15 or {}).values())
     launches = {"decode_attention": serving["decode_launches"]
                 + granite["decode_launches"] + loop["decode_launches"]
                 + cli["decode_launches"] + plan.get("decode_launches", 0)
-                + sum(f["decode_launches"] for f in fam),
+                + sum(f["decode_launches"] for f in fam + p15),
                 "flash_attention_fwd": prefill["flash_launches"]
                 + train["flash_fwd_launches"] + loop["flash_launches"]
                 + cli["flash_launches"] + plan.get("flash_launches", 0)
-                + sum(f["prefill"]["flash_launches"] for f in fam if "prefill" in f),
+                + sum(f["prefill"]["flash_launches"] for f in fam if "prefill" in f)
+                + sum(f["flash_launches"] for f in p15),
                 "flash_attention_bwd": train["flash_bwd_launches"],
                 "mamba_scan": mamba_serving["scan_launches"]
                 + mamba_prefill["scan_launches"]
@@ -2293,6 +2667,39 @@ def _release(device):
         torch.cuda.empty_cache()
 
 
+def phase15(frontends, device, base_db: Path) -> dict:
+    """Phase 15: the two stub frontends, the enc-dec model and the corpus
+    plan on a copy of ``base_db``."""
+    return {"vlm": phase_frontend(frontends[0], device, "vlm"),
+            "llama4": phase_frontend(frontends[1], device, "llama4",
+                                     layers=LLAMA4_LAYERS,
+                                     kinds=("self_attn", "moe")),
+            "encdec": phase_encdec(frontends[2], device),
+            "plan": phase_corpus_plan([], device, models=CORPUS_ARCHS, full=True,
+                                      base_db=base_db, db=PHASE15_DB)}
+
+
+def phase15_main() -> int:
+    """``--phase15``: phases 1-3 (the kernels at every shape, phase 15's
+    included) and phase 15 alone, its plan on phase 13's merged DB."""
+    base = CLI_DIR / "merged.sqlite"
+    if not base.exists():
+        print(f"chip_smoke --phase15: the corpus plan starts from phase 13's "
+              f"{base}, which a whole run of this script leaves; none is there",
+              file=sys.stderr)
+        return 1
+    cfg, device = get_config("llama3-8b"), torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    phase_device(cfg, device)
+    phase_build(cfg, device)
+    frontends = [get_config(n) for n in (VLM, LLAMA4, SEAMLESS)]
+    phase_kernels(cfg, device, family_cfgs=frontends,
+                  flash_shapes=frontend_flash_shapes(*frontends))
+    phase15(frontends, device, base)
+    print(f"[end] phases 1-3 and 15 passed in {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cli"]:
         return cli_main(sys.argv[2:])
@@ -2302,13 +2709,17 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["--profile-simulate"]:
         return profile_simulate_main()
+    if sys.argv[1:] == ["--phase15"]:
+        return phase15_main()
     cfg, mcfg = get_config("llama3-8b"), get_config(MAMBA)
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     info = phase_device(cfg, device)
     phase_build(cfg, device)
     families = [get_config(n) for n in (MLA, MOE, HYBRID)]
-    kernels = phase_kernels(cfg, device, family_cfgs=families)
+    frontends = [get_config(n) for n in (VLM, LLAMA4, SEAMLESS)]
+    kernels = phase_kernels(cfg, device, family_cfgs=families + frontends,
+                            flash_shapes=frontend_flash_shapes(*frontends))
     kernels.update(phase_scan(mcfg, device,
                               family_cfgs=[c for c in families if c.ssm_state]))
     serving = phase_serving(cfg, device)
@@ -2330,9 +2741,10 @@ def main() -> int:
         served[tag] = phase_family(fcfg, device, tag)
     plan = phase_family_plan([], device, models=PLAN_MODELS, full=True,
                              base_db=CLI_DIR / "merged.sqlite", db=PHASE14_DB)
+    p15 = phase15(frontends, device, CLI_DIR / "merged.sqlite")
     print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill, loop, cli, served, plan)
+                 mamba_prefill, loop, cli, served, plan, p15)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

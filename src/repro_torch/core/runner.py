@@ -74,10 +74,9 @@ def trace_model(cfg: ModelConfig, *, batch: Optional[int] = None,
                 impl: str = "xla") -> ModelTrace:
     """One tainted forward of ``cfg`` on the meta device with a dummy
     (batch, seq) prompt of collision-free primes, as the reference picks
-    them; retraced with the next primes on ambiguity."""
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: enc-dec and frontends are not "
-                                  "ported")
+    them; retraced with the next primes on ambiguity.  An enc-dec model or
+    a frontend also gets frames (batch, s_front, d_model), s_front a third
+    collision-free prime seeded as NUM_TOKS."""
     # parameters on the meta device: shapes and dtypes, no memory
     model = Model(cfg, device="meta", generator=torch.Generator())
     model_vals = config_taint_values(cfg)
@@ -90,23 +89,32 @@ def trace_model(cfg: ModelConfig, *, batch: Optional[int] = None,
                 b = _pick_free(model_vals, set(), attempt)
             if s is None or attempt > 0 and seq is None:
                 s = _pick_free(model_vals, {b}, attempt + 3)
+            s_front = 0
+            if cfg.frontend != "none" or cfg.is_encdec:
+                s_front = _pick_free(model_vals, {b, s}, attempt + 6)
 
             registry = TaintRegistry()
             for v in model_vals:
                 registry.seed(v, MODEL_CONFIG)
             registry.seed(b, NUM_REQS)
             registry.seed(s, NUM_TOKS)
+            if s_front:
+                registry.seed(s_front, NUM_TOKS)
 
-            tokens = torch.zeros((b, s), dtype=torch.long, device="meta")
+            args = [torch.zeros((b, s), dtype=torch.long, device="meta")]
+            if s_front:
+                args.append(torch.zeros((b, s_front, cfg.d_model),
+                                        dtype=model.dtype, device="meta"))
 
-            def fn(tokens):
-                return model(tokens, impl=impl, remat=False)[0]
+            def fn(tokens, frames=None):
+                return model(tokens, frames=frames, impl=impl, remat=False)[0]
 
             trace = trace_tainted(
-                fn, (tokens,), registry=registry, root=model,
-                arg_taints=[(registry.lookup(b), registry.lookup(s))])
+                fn, args, registry=registry, root=model,
+                arg_taints=[tuple(registry.lookup(int(d)) for d in a.shape)
+                            for a in args])
             return ModelTrace(trace=trace, cfg=cfg, batch=b, seq=s,
-                              n_frontend=0, retraces=retraces)
+                              n_frontend=s_front, retraces=retraces)
         except AmbiguityError:
             retraces += 1
             if attempt == max_retries:

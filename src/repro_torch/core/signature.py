@@ -113,38 +113,48 @@ class _AtenOps(TorchDispatchMode):
 
 
 #: the sentinel kernel that brackets a profiled call (``torch.cuda._sleep``),
-#: how many lead it, and how many sessions may lose them before one fails
-_SENTINEL, _LEADING, _ATTEMPTS = "spin_kernel", 3, 5
+#: how many lead the first call, how many calls a session makes (each
+#: closed by a sentinel), and how many sessions may be taken before one fails
+_SENTINEL, _LEADING, _CALLS, _ATTEMPTS = "spin_kernel", 3, 3, 8
 
 
 def _cuda_kernels(fn: Callable, args: Sequence[Any]) -> set:
     """Names of the device activities (kernels, copies) of one eager call,
     after a first call that builds kernels and fills library caches.
 
-    A profiler session can lose the first device activity it should record
-    (seen on an H100, once a session has profiled a kernel of the port's
-    own), and an empty set is a real fingerprint (a view launches
-    nothing).  So sentinel kernels lead and close the call; a session is
-    kept when its first and last activities are sentinels, and taken again
-    otherwise."""
+    A profiler session can lose device activities it should record (seen
+    on an H100: in some processes the first activity of most sessions, and
+    now and then others, the call's own among them, even in two sessions
+    in a row), and an empty set is a real fingerprint (a view launches
+    nothing).  So sentinel kernels lead the call and close it, a session
+    makes the call ``_CALLS`` times and counts when its first and last
+    activities are sentinels, its set is the union over its calls, and a
+    set is kept once two sessions that count give it.  A lost kernel
+    would otherwise change a signature, and with it a plan's id, from one
+    process to the next."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
+    seen = []
     for _ in range(_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(_LEADING):
                 torch.cuda._sleep(1)
-            fn(*args)
-            torch.cuda._sleep(1)
+            for _ in range(_CALLS):
+                fn(*args)
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
         if names and _SENTINEL in names[0] and _SENTINEL in names[-1]:
-            return {n for n in names if _SENTINEL not in n}
-    raise RuntimeError(f"torch.profiler lost the sentinels of {_ATTEMPTS} "
-                       "sessions in a row")
+            got = frozenset(n for n in names if _SENTINEL not in n)
+            if got in seen:
+                return set(got)
+            seen.append(got)
+    raise RuntimeError(f"no two of {_ATTEMPTS} torch.profiler sessions kept "
+                       "their sentinels and agreed")
 
 
 def fingerprint(calls: Sequence[Tuple[Callable, Sequence[Any]]]) -> str:

@@ -5,7 +5,9 @@
 // function, with causal, sliding-window and q_offset masks, whole tiles that
 // a mask removes skipped, GQA query head h reading KV head h / group, ragged
 // tails masked, a finite NEG_INF so fully masked rows give zeros and not NaN,
-// l clamped at 1e-20, and lse = m + log(l) in fp32.
+// l clamped at 1e-20, and lse = m + log(l) in fp32.  An empty memory (Sk = 0,
+// a cross-attention point at ctx 0) runs zero key tiles: every row comes out
+// zeros with lse = NEG_INF + log(1e-20), as a fully masked row.
 //
 // What bounds it on the H100: operations.  At the prefill shapes of the
 // main path (S = 1024, D = 128) each K/V tile is reused by 128 query rows,
@@ -449,12 +451,17 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = hopper::make_map(&tq, q, batch, sq, heads, D, st[0], st[1], st[2], kBQ);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && sk == 0) {
+    // no key tile is loaded, and a tensor map cannot have a zero dimension:
+    // K and V get Q's map, which nothing reads
+    tk = tv = tq;
+  } else if (err == cudaSuccess) {
     err = hopper::make_map(&tk, k, batch, sk, heads / group, D, st[3], st[4],
                            st[5], kBK);
-  if (err == cudaSuccess)
-    err = hopper::make_map(&tv, v, batch, sk, heads / group, D, st[6], st[7],
-                           st[8], kBK);
+    if (err == cudaSuccess)
+      err = hopper::make_map(&tv, v, batch, sk, heads / group, D, st[6], st[7],
+                             st[8], kBK);
+  }
   if (err != cudaSuccess) return err;
   const size_t smem = Smem<D>::kBytes;
   err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);

@@ -60,7 +60,8 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     """What the kernel computes, in float32: q (B,Sq,H,D), k/v (B,Sk,KV,D)
     -> out (B,Sq,H,Dv) in q's dtype, lse (B,H,Sq) float32.  Masked logits
     take the finite NEG_INF and l is clamped at 1e-20, so a fully masked
-    row gives zeros and lse = NEG_INF + log(1e-20)."""
+    row, and every row against an empty memory (Sk = 0), gives zeros and
+    lse = NEG_INF + log(1e-20)."""
     sq, h, d = q.shape[1], q.shape[2], q.shape[3]
     sk, kv = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(h // kv, dim=2)
@@ -68,7 +69,8 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(d)), kf)
     mask = _mask(sq, sk, causal, window, q_offset, q.device)
     s = s.masked_fill(~mask, NEG_INF)
-    m = s.amax(-1, keepdim=True)
+    m = (s.amax(-1, keepdim=True) if sk else
+         s.new_full(s.shape[:-1] + (1,), NEG_INF))
     p = torch.exp(s - m) * mask
     l = torch.clamp(p.sum(-1, keepdim=True), min=1e-20)
     out = torch.einsum("bhqk,bkhd->bqhd", p / l, vf)
@@ -96,10 +98,12 @@ def _check(q, k, v, what: str = "flash_attention_fwd", **more):
     if d not in SUPPORTED_DIMS or v.shape[3] != d:
         raise ValueError(f"{what}: head dims {d}/{v.shape[3]}; "
                          f"the kernel takes Dv == D in {SUPPORTED_DIMS}")
-    if sq == 0 or k.shape[1] == 0:
-        raise ValueError(f"{what}: empty sequence (Sq {sq}, Sk {k.shape[1]})")
+    if sq == 0:
+        raise ValueError(f"{what}: no query rows (Sq 0)")
     vec = 16 // q.element_size()
     for name, t in ts.items():
+        if t.numel() == 0:            # an empty memory: no row is read
+            continue
         if t.stride(-1) != 1 or any(st % vec for st in t.stride()[:-1]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} needs a contiguous "

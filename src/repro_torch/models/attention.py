@@ -73,6 +73,35 @@ class Attention(nn.Module):
         return self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
 
 
+class CrossAttention(nn.Module):
+    """Cross-attention of a decoder layer over the encoder's memory: the
+    query and output projections (``q_proj``, ``o_proj``).  The memory's
+    K/V come from ``compute_kv`` over the encoder output, with projections
+    that sit on the decoder block, as the reference computes them in the
+    layer's scope, outside ``cross_attn``.  ``forward`` is the reference's
+    ``attention(..., kv_override=(k, v))``: q from x alone, no rotary, and
+    every key attended (``causal=False``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.q_proj = Linear(d, cfg.n_heads * hd, **kw)
+        self.o_proj = Linear(cfg.n_heads * hd, d, **kw)
+
+    def forward(self, x: torch.Tensor, enc_k: torch.Tensor,
+                enc_v: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+        """x (B,S,D_model), enc_k/enc_v (B,Sk,KV,hd) -> (B,S,D_model)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd = cfg.resolved_head_dim
+        q = self.q_proj(x).reshape(b, s, cfg.n_heads, hd)
+        out = _sdpa(q, enc_k, enc_v, causal=False, window=0, impl=impl)
+        return self.o_proj(out.reshape(b, s, cfg.n_heads * hd))
+
+
 def _sdpa(q, k, v, *, causal, window, impl, q_offset=0):
     """q (B,Sq,H,D) k,v (B,Sk,KV,D) -> (B,Sq,H,D)."""
     sq, sk = q.shape[1], k.shape[1]
@@ -92,9 +121,11 @@ def _sdpa(q, k, v, *, causal, window, impl, q_offset=0):
                      f"ported: {sorted(REFERENCE_IMPL)} and 'auto'")
 
 
-def compute_kv(attn: Attention, x: torch.Tensor,
+def compute_kv(attn: nn.Module, x: torch.Tensor,
                positions: Optional[torch.Tensor] = None):
-    """(k, v), each (B,S,KV,hd), rotated when positions are given."""
+    """(k, v), each (B,S,KV,hd), rotated when positions are given, from the
+    ``k_proj`` and ``v_proj`` of ``attn`` (an ``Attention``, or a decoder
+    block for its cross-attention memory)."""
     cfg = attn.cfg
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim

@@ -4,8 +4,9 @@ against a cache, one-token decode, and each block's cache.
 Counterpart of ``repro.models.transformer`` for the dense, MLA, MoE, Mamba
 and hybrid block kinds.  The reference scans over a repeating period of
 layers; PyTorch runs eagerly, so the port keeps one ``Block`` per layer
-(``layers.{i}``) and loops over them.  Cross-attention (enc-dec) comes with
-its family's slice.
+(``layers.{i}``) and loops over them.  A block of an enc-dec decoder
+(``desc.cross``) runs cross-attention over the encoder's memory after its
+self-attention; the encoder's blocks are dense blocks run non-causally.
 """
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import MLP, RMSNorm, apply_rope
+from repro_torch.models.layers import MLP, Linear, RMSNorm, apply_rope
 
 Cache = Dict[str, torch.Tensor]
 Aux = Dict[str, torch.Tensor]
+EncKV = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclass(frozen=True)
@@ -49,14 +51,14 @@ class Block(nn.Module):
     """One decoder layer, its submodules named as the reference's trace
     scopes: ``ln1``, the attention (``self_attn``, or ``mla_attn`` for an
     MLA config), ``mamba`` beside it in a hybrid block, ``ln2`` and the FFN
-    (``mlp``, or ``moe``); a Mamba block has ``ln1`` and ``mamba`` only."""
+    (``mlp``, or ``moe``); a Mamba block has ``ln1`` and ``mamba`` only.  A
+    cross block (enc-dec decoder) adds ``ln_x``, ``cross_attn`` and the
+    ``k_proj``/``v_proj`` of the encoder memory, which the reference runs
+    in the layer's scope (``layers.{i}/k_proj``), outside ``cross_attn``."""
 
     def __init__(self, cfg: ModelConfig, desc: BlockDesc, *, device=None,
                  dtype=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if desc.cross:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention blocks (enc-dec) are not ported")
         self.cfg, self.desc = cfg, desc
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
@@ -69,6 +71,12 @@ class Block(nn.Module):
             self.self_attn = attn_mod.Attention(cfg, **kw)
         if desc.kind == "hybrid":
             self.mamba = mamba_mod.Mamba(cfg, **kw)
+        if desc.cross:
+            d, kvd = cfg.d_model, cfg.n_kv_heads * cfg.resolved_head_dim
+            self.ln_x = RMSNorm(d, cfg.norm_eps, device=device)
+            self.cross_attn = attn_mod.CrossAttention(cfg, **kw)
+            self.k_proj = Linear(d, kvd, **kw)
+            self.v_proj = Linear(d, kvd, **kw)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if desc.kind == "moe":
             self.moe = moe_mod.MoE(cfg, **kw)
@@ -76,9 +84,23 @@ class Block(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                impl: str) -> Tuple[torch.Tensor, Optional[Aux]]:
+                impl: str, causal: bool = True, enc_kv: EncKV = None
+                ) -> Tuple[torch.Tensor, Optional[Aux]]:
         """(x_out, the MoE aux losses or None)."""
-        return block_apply(self, x, positions=positions, impl=impl)[:2]
+        return block_apply(self, x, positions=positions, impl=impl,
+                           causal=causal, enc_kv=enc_kv)[:2]
+
+
+def _cross(block: Block, x: torch.Tensor, enc_kv: EncKV,
+           impl: str) -> torch.Tensor:
+    """The residual stream after the block's cross-attention, if it has
+    one, over the encoder memory ``enc_kv`` = (k, v)."""
+    if not block.desc.cross:
+        return x
+    if enc_kv is None:
+        raise ValueError(f"{block.cfg.name}: a cross block needs the "
+                         "encoder memory (enc_kv)")
+    return x + block.cross_attn(block.ln_x(x), *enc_kv, impl=impl)
 
 
 def _ffn(block: Block, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[Aux]]:
@@ -93,13 +115,14 @@ def _ffn(block: Block, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[Aux]]:
 # ---------------------------------------------------------------------------
 
 def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
-                impl: str, causal: bool = True, collect_cache: bool = False,
-                max_seq: int = 0
+                impl: str, causal: bool = True, enc_kv: EncKV = None,
+                collect_cache: bool = False, max_seq: int = 0
                 ) -> Tuple[torch.Tensor, Optional[Aux], Optional[Cache]]:
     """Returns (x_out, aux_or_None, cache_entry_or_None): the MoE aux
     losses, and the layer's decode cache, ``{"k", "v"}`` for attention,
     ``{"c", "k_rope"}`` for MLA, ``{"conv", "h"}`` for Mamba, both for a
-    hybrid block."""
+    hybrid block.  A cross block attends ``enc_kv`` after its
+    self-attention; the caller adds the memory to its cache."""
     desc = block.desc
     h = block.ln1(x)
     cache: Cache = {}
@@ -128,7 +151,7 @@ def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
         else:
             ym = block.mamba(h, impl=impl)
         y = y + ym
-    x = x + y
+    x = _cross(block, x + y, enc_kv, impl)
     y2, aux = _ffn(block, x)
     return x + y2, aux, (cache or None)
 
@@ -213,7 +236,8 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
     """x: (B,C,D) chunk; lengths (B,): tokens already cached per row.
     Engine caches are absolute-position (use_ring=False); ``cache`` is
     updated in place.  A Mamba mixer continues from the cache's conv tail
-    and SSM state and writes the chunk's into it."""
+    and SSM state and writes the chunk's into it; a cross block attends
+    the cache's encoder memory (``enc_k``, ``enc_v``)."""
     desc = block.desc
     h = block.ln1(x)
     if desc.kind == "mamba":
@@ -226,8 +250,12 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
                                     window=desc.window, impl=impl)
     if desc.kind == "hybrid":
         y = y + _mamba_chunk(block.mamba, h, cache, impl)
-    x = x + y
+    x = _cross(block, x + y, _cache_memory(block, cache), impl)
     return x + _ffn(block, x)[0]
+
+
+def _cache_memory(block: Block, cache: Cache) -> EncKV:
+    return (cache["enc_k"], cache["enc_v"]) if block.desc.cross else None
 
 
 def _mamba_chunk(mamba: mamba_mod.Mamba, h: torch.Tensor, cache: Cache,
@@ -248,7 +276,8 @@ def block_decode(block: Block, x: torch.Tensor, cache: Cache, *,
                  kv_seq_shards: int = 1) -> torch.Tensor:
     """x: (B,1,D); ``cache`` is updated in place.  Like the reference, a
     Mamba mixer advances the state of every row, idle ones included, and
-    sliding-window attention decodes without its window."""
+    sliding-window attention decodes without its window.  A cross block's
+    one query row attends the cache's whole encoder memory."""
     desc = block.desc
     h = block.ln1(x)
     if desc.kind == "mamba":
@@ -261,7 +290,7 @@ def block_decode(block: Block, x: torch.Tensor, cache: Cache, *,
                                       impl=impl, kv_seq_shards=kv_seq_shards)
     if desc.kind == "hybrid":
         y = y + _mamba_step(block, h, cache, impl)
-    x = x + y
+    x = _cross(block, x + y, _cache_memory(block, cache), impl)
     return x + _ffn(block, x)[0]
 
 
@@ -275,11 +304,13 @@ def _mamba_step(block: Block, h: torch.Tensor, cache: Cache,
 
 
 def block_cache(cfg: ModelConfig, desc: BlockDesc, batch: int, max_seq: int,
-                *, device, dtype, use_ring: bool = True) -> Cache:
+                *, device, dtype, use_ring: bool = True,
+                enc_len: int = 0) -> Cache:
     """One block's zeroed decode cache (the reference's
-    ``block_cache_spec``).  use_ring=False (serving engine):
-    absolute-position caches even for sliding-window layers, so chunked
-    prefill can address slots directly."""
+    ``block_cache_spec``, with a cross block's ``enc_k``/``enc_v`` of
+    ``enc_len`` rows, as the reference's ``Model.cache_spec`` adds them).
+    use_ring=False (serving engine): absolute-position caches even for
+    sliding-window layers, so chunked prefill can address slots directly."""
     kw = dict(device=device, dtype=dtype)
     cache: Cache = {}
     if desc.kind != "mamba":
@@ -290,4 +321,8 @@ def block_cache(cfg: ModelConfig, desc: BlockDesc, batch: int, max_seq: int,
                 cfg, batch, max_seq, desc.window if use_ring else 0, **kw))
     if desc.kind in ("mamba", "hybrid"):
         cache.update(mamba_mod.init_mamba_state(cfg, batch, **kw))
+    if desc.cross:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache.update(enc_k=torch.zeros(shape, **kw),
+                     enc_v=torch.zeros(shape, **kw))
     return cache

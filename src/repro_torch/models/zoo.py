@@ -2,19 +2,29 @@
 prefill, chunked prefill, one-token decode and zeroed caches.
 
 Counterpart of ``repro.models.zoo`` for decoders of the dense, MLA, MoE,
-Mamba and hybrid kinds.  Submodule names follow the reference trace's
-scopes (``layers.{i}.self_attn.q_proj``, ``layers.{i}.mla_attn.q_down``,
-``layers.{i}.moe.router``, ``layers.{i}.mamba.in_proj``, ...) so a
-module-hook tracer finds the stateful ``self_attn``, ``mla_attn``, ``moe``
-and ``mamba`` modules.
+Mamba and hybrid kinds, encoder-decoders, and stub frontends.  Submodule
+names follow the reference trace's scopes (``layers.{i}.self_attn.q_proj``,
+``layers.{i}.mla_attn.q_down``, ``layers.{i}.moe.router``,
+``layers.{i}.mamba.in_proj``, ``layers.{i}.cross_attn.q_proj``,
+``enc_layers.{i}.self_attn``, ...) so a module-hook tracer finds the
+stateful ``self_attn``, ``cross_attn``, ``mla_attn``, ``moe`` and ``mamba``
+modules.
+
+``frames`` (B, F, d_model) are a stub frontend's precomputed embeddings, as
+the reference's ``batch["frames"]``: an enc-dec model encodes them and its
+decoder attends the encoder's memory; a vision or audio frontend that is
+not enc-dec prepends them to the token embeddings (the ``frontend`` scope),
+and ``forward`` drops their logits.
 
 A cache is a list with one dict per layer: ``{"k", "v"}`` for attention,
 each tensor (B, slots, KV, hd); ``{"c", "k_rope"}`` for MLA, the latent
 (B, Smax, kv_lora_rank) and the rotary key (B, Smax, qk_rope_head_dim);
 ``{"conv", "h"}`` for Mamba, the conv tail (B, kw-1, Di) and the float32
 SSM state (B, Di, N); a hybrid layer holds ``k``, ``v``, ``conv`` and
-``h``.  ``prefill_chunk`` and ``decode_step`` write into the cache they are
-given, in place, and return it.
+``h``; a cross layer also holds the encoder memory's ``enc_k`` and
+``enc_v``, each (B, enc_len, KV, hd).  ``prefill_chunk`` and
+``decode_step`` write into the cache they are given, in place, and return
+it.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Embedding, Linear, RMSNorm
 
@@ -45,6 +56,15 @@ class TiedHead(nn.Module):
         return x @ table.T
 
 
+class Frontend(nn.Module):
+    """A stub frontend's frames prepended to the token embeddings, as a
+    module so that the concatenation runs in the ``frontend`` scope as the
+    reference's does.  It holds no weights."""
+
+    def forward(self, frames: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([frames, x], dim=1)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: Device = "cuda",
                  dtype: Optional[torch.dtype] = None,
@@ -52,9 +72,6 @@ class Model(nn.Module):
         """Weights are drawn from ``generator`` (default: a generator on
         ``device`` seeded with 0) in ``dtype`` (default: ``cfg.dtype``)."""
         super().__init__()
-        if cfg.is_encdec or cfg.frontend != "none":
-            raise NotImplementedError(f"{cfg.name}: enc-dec and frontends are "
-                                      "not ported")
         dev = resolve_device(device)
         dtype = dtype or getattr(torch, cfg.dtype)
         if generator is None:
@@ -67,6 +84,13 @@ class Model(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=dev)
         self.lm_head = (TiedHead() if cfg.tie_embeddings
                         else Linear(cfg.d_model, cfg.vocab_size, **kw))
+        if cfg.is_encdec:
+            enc = tfm.BlockDesc("dense", 0, cross=False)
+            self.enc_layers = nn.ModuleList(
+                tfm.Block(cfg, enc, **kw) for _ in range(cfg.n_enc_layers))
+            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=dev)
+        elif cfg.frontend != "none":
+            self.frontend = Frontend()
 
     @property
     def device(self) -> torch.device:
@@ -87,34 +111,80 @@ class Model(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _frames(self, frames) -> torch.Tensor:
+        return torch.as_tensor(frames, device=self.device).to(self.dtype)
+
+    def _embed_inputs(self, tokens, frames) -> Tuple[torch.Tensor, int]:
+        """Token embeddings, with a non-enc-dec frontend's frames prepended
+        when given; and the number of frames prepended."""
+        x = self.embed(self._tokens(tokens))
+        if frames is None or not hasattr(self, "frontend"):
+            return x, 0
+        frames = self._frames(frames)
+        return self.frontend(frames, x), frames.shape[1]
+
+    def _enc_out(self, frames, impl: str) -> Optional[torch.Tensor]:
+        if not self.cfg.is_encdec:
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name}: an enc-dec model needs frames")
+        return self.encode(frames, impl=impl)
+
+    @staticmethod
+    def _enc_kv(layer: tfm.Block, enc_out: Optional[torch.Tensor]
+                ) -> tfm.EncKV:
+        """The encoder memory of a cross layer: its K/V projections of the
+        encoder output, in the layer's scope, unrotated."""
+        if enc_out is None:
+            return None
+        return attn_mod.compute_kv(layer, enc_out)
+
+    # ------------------------------------------------------------------
+    # encoder (enc-dec only)
+    # ------------------------------------------------------------------
+
+    def encode(self, frames, *, impl: str = "auto") -> torch.Tensor:
+        """frames (B,F,d_model) -> the encoder output (B,F,d_model): the
+        encoder's dense blocks run non-causally, then ``enc_norm``."""
+        x = self._frames(frames)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for layer in self.enc_layers:
+            x, _ = layer(x, positions, impl=impl, causal=False)
+        return self.enc_norm(x)
+
     # ------------------------------------------------------------------
     # forward (train / full-sequence)
     # ------------------------------------------------------------------
 
-    def forward(self, tokens, *, impl: str = "auto",
+    def forward(self, tokens, *, frames=None, impl: str = "auto",
                 remat: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """tokens (B,S) -> (logits (B,S,V) float32, aux): ``aux`` sums the
         MoE layers' ``load_balance`` and ``router_z`` (float32 scalars),
         zeros (``ZERO_AUX``) without MoE layers, as the reference's.
+        ``frames`` (B,F,d_model): the encoder input of an enc-dec model, or
+        a frontend's embeddings, prepended and cut from the logits.
 
         ``remat`` (default ``cfg.remat``) recomputes each layer in the
         backward instead of keeping its activations, as the reference's
         ``jax.checkpoint`` around its layer period does; it applies only
         while autograd records."""
         remat = self.cfg.remat if remat is None else remat
-        x = self.embed(self._tokens(tokens))
+        enc_out = self._enc_out(frames, impl)
+        x, n_front = self._embed_inputs(tokens, frames)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = dict(ZERO_AUX)
         for layer in self.layers:
+            enc_kv = self._enc_kv(layer, enc_out)
             if remat and torch.is_grad_enabled():
                 x, a = checkpoint(layer, x, positions, impl=impl,
-                                  use_reentrant=False)
+                                  enc_kv=enc_kv, use_reentrant=False)
             else:
-                x, a = layer(x, positions, impl=impl)
+                x, a = layer(x, positions, impl=impl, enc_kv=enc_kv)
             if a is not None:
                 aux = {k: aux[k] + a[k] for k in aux}
-        return self._head(x), aux
+        logits = self._head(x)
+        return (logits[:, n_front:] if n_front else logits), aux
 
     # ------------------------------------------------------------------
     # loss
@@ -128,7 +198,8 @@ class Model(nn.Module):
         ``tokens`` and ``labels`` (B,S).  Returns (total, metrics) with
         ``ce``, ``load_balance``, ``router_z`` and ``tokens``; the metrics
         are detached."""
-        logits, aux = self.forward(batch["tokens"], impl=impl, remat=remat)
+        logits, aux = self.forward(batch["tokens"], frames=batch.get("frames"),
+                                   impl=impl, remat=remat)
         labels = self._tokens(batch["labels"])
         mask = (labels >= 0).float()
         safe = labels.clamp(min=0)
@@ -147,20 +218,26 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def prefill(self, tokens, *, max_seq: int, impl: str = "auto"
-                ) -> Tuple[torch.Tensor, Cache]:
+    def prefill(self, tokens, *, max_seq: int, frames=None,
+                impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
         """Full-sequence pass that fills the decode cache: K/V for
         attention layers, the latent and rotary key for MLA layers, the
-        conv tail and final SSM state for Mamba mixers.
+        conv tail and final SSM state for Mamba mixers, the encoder memory
+        for cross layers.  ``frames`` as in ``forward``; a frontend's frames
+        take the first cache rows.
 
         Returns (logits at the last position (B, vocab), cache)."""
-        x = self.embed(self._tokens(tokens))
+        enc_out = self._enc_out(frames, impl)
+        x, _ = self._embed_inputs(tokens, frames)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         cache = []
         for layer in self.layers:
+            enc_kv = self._enc_kv(layer, enc_out)
             x, _, c = tfm.block_apply(layer, x, positions=positions,
-                                      impl=impl, collect_cache=True,
-                                      max_seq=max_seq)
+                                      impl=impl, enc_kv=enc_kv,
+                                      collect_cache=True, max_seq=max_seq)
+            if enc_kv is not None:
+                c = dict(c or {}, enc_k=enc_kv[0], enc_v=enc_kv[1])
             cache.append(c)
         return self._head(x[:, -1:])[:, 0], cache
 
@@ -187,13 +264,15 @@ class Model(nn.Module):
     # caches
     # ------------------------------------------------------------------
 
-    def zero_cache(self, batch: int, max_seq: int,
+    def zero_cache(self, batch: int, max_seq: int, enc_len: int = 0,
                    use_ring: bool = True) -> Cache:
         """use_ring=False (serving engine): absolute-position caches even
         for sliding-window layers, so chunked prefill can address slots.
-        A Mamba layer's state does not depend on ``max_seq``."""
+        A Mamba layer's state does not depend on ``max_seq``; a cross
+        layer's encoder memory has ``enc_len`` rows."""
         return [tfm.block_cache(self.cfg, d, batch, max_seq, device=self.device,
-                                dtype=self.dtype, use_ring=use_ring)
+                                dtype=self.dtype, use_ring=use_ring,
+                                enc_len=enc_len)
                 for d in self.descs]
 
     # ------------------------------------------------------------------
@@ -238,11 +317,28 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig
            "final_norm.scale": t(tree["final_norm"]["scale"])}
     if not cfg.tie_embeddings:
         out["lm_head.w"] = t(tree["lm_head"]["w"])
+    if cfg.is_encdec:
+        enc = tree["enc_blocks"][0]
+        out["enc_norm.scale"] = t(tree["enc_norm"]["scale"])
+        for i in range(cfg.n_enc_layers):
+            pre = f"enc_layers.{i}."
+            for a in ("ln1", "ln2"):
+                out[pre + f"{a}.scale"] = t(enc[a]["scale"][i])
+            for a, name in _ATTN_NAMES.items():
+                out[pre + f"self_attn.{name}.w"] = t(enc["attn"][a]["w"][i])
+            out.update(_mlp_params(enc["ffn"], i, pre + "mlp.", t))
     kinds = cfg.layer_kinds()
     for i in range(cfg.n_layers):
         blk, j = blocks[i % p], i // p
         pre = f"layers.{i}."
         out[pre + "ln1.scale"] = t(blk["ln1"]["scale"][j])
+        if "xattn" in blk:
+            x = blk["xattn"]
+            out[pre + "ln_x.scale"] = t(blk["ln_x"]["scale"][j])
+            out[pre + "cross_attn.q_proj.w"] = t(x["q"]["w"][j])
+            out[pre + "cross_attn.o_proj.w"] = t(x["o"]["w"][j])
+            out[pre + "k_proj.w"] = t(x["k"]["w"][j])
+            out[pre + "v_proj.w"] = t(x["v"]["w"][j])
         if kinds[i] in ("mamba", "hybrid"):
             m = blk["mamba"]
             for a in ("in_proj", "x_proj", "out_proj"):

@@ -1,15 +1,17 @@
 """Execution context emulation (paper §5.2 / I2) for the stateful
-``self_attn``, ``mla_attn``, ``mamba`` and ``moe`` modules.
+``self_attn``, ``cross_attn``, ``mla_attn``, ``mamba`` and ``moe`` modules.
 
 Counterpart of ``repro.serving.context``.  Decode-phase attention and Mamba
 cannot be profiled from a trace alone: they need KV-cache memory and
 per-request lengths, the latent cache, or the conv tail and SSM state.  The
 builders here reuse the serving engine's own code — the ``Attention``,
-``MLA``, ``Mamba`` and ``MoE`` modules and the same functions the engine
-runs — parameterized by phase and backend, so the profiled computation is
-exactly the served computation.  A ``self_attn`` entry of an MLA config
-gets the ``mla_attn`` context; ``moe`` is profiled in prefill only (a
-decode step is a one-token prefill).
+``CrossAttention``, ``MLA``, ``Mamba`` and ``MoE`` modules and the same
+functions the engine runs — parameterized by phase and backend, so the
+profiled computation is exactly the served computation.  A ``self_attn``
+entry of an MLA config gets the ``mla_attn`` context; ``cross_attn``
+attends a memory of ctx encoder rows with toks query rows in prefill and
+one in decode; ``moe`` is profiled in prefill only (a decode step is a
+one-token prefill).
 
 ``build_context(cfg, kind, ...)`` returns a ``ModuleContext``: ``params``
 and ``input_spec(toks, reqs, ctx)`` are ``TensorSpec`` stand-ins,
@@ -17,8 +19,7 @@ and ``input_spec(toks, reqs, ctx)`` are ``TensorSpec`` stand-ins,
 seeded ``torch.Generator`` (shapes only on the ``meta`` device),
 ``module(weights)`` binds weights into the engine's module of that kind,
 and ``fn(module, *inputs)`` runs one call.  ``cached_build_context``
-memoizes the builder, as the reference's does.  Cross-attention comes with
-the enc-dec slice.
+memoizes the builder, as the reference's does.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.transformer import prefill_chunk_attention
 
 #: the engine's module of each stateful kind
-MODULES = {"self_attn": attn_mod.Attention, "mla_attn": mla_mod.MLA,
+MODULES = {"self_attn": attn_mod.Attention,
+           "cross_attn": attn_mod.CrossAttention, "mla_attn": mla_mod.MLA,
            "mamba": mamba_mod.Mamba, "moe": moe_mod.MoE}
 
 
@@ -81,7 +83,7 @@ class ModuleContext:
                                        device=self.device)
                 w = torch.randn(x.shape, generator=generator,
                                 device=self.device, dtype=torch.float32)
-                return (w * 0.02).to(x.dtype)
+                return w.mul_(0.02).to(x.dtype)
             if isinstance(x, Mapping):
                 return {k: gen(v) for k, v in x.items()}
             return type(x)(gen(v) for v in x)
@@ -89,10 +91,12 @@ class ModuleContext:
 
     def module(self, weights: Mapping[str, torch.Tensor]) -> nn.Module:
         """The engine's module of this kind (``MODULES``) holding
-        ``weights``."""
-        mod = MODULES[self.kind](self.cfg, device=self.device,
+        ``weights`` themselves: built on the meta device and the weights
+        assigned, so no second copy is drawn (a llama4-maverick ``moe``
+        layer is 32 GB in bf16)."""
+        mod = MODULES[self.kind](self.cfg, device="meta",
                                  dtype=getattr(torch, self.cfg.dtype))
-        mod.load_state_dict(weights)
+        mod.load_state_dict(weights, assign=True)
         return mod.requires_grad_(False)
 
 
@@ -113,6 +117,8 @@ def build_context(cfg: ModelConfig, kind: str, *, phase: str = "prefill",
         return _mla_context(cfg, phase, backend, attrs, dev)
     if kind == "moe":
         return _moe_context(cfg, phase, backend, attrs, dev)
+    if kind == "cross_attn":
+        return _cross_context(cfg, phase, backend, attrs, dev)
     if kind != "self_attn":
         raise KeyError(f"no execution-context builder for module kind "
                        f"{kind!r} in the port yet")
@@ -152,6 +158,28 @@ def build_context(cfg: ModelConfig, kind: str, *, phase: str = "prefill",
                     TensorSpec((reqs,), torch.int32))
     return ModuleContext(kind, phase, backend, fn, params, inputs, attrs,
                          cfg, dev)
+
+
+def _cross_context(cfg: ModelConfig, phase: str, backend: str,
+                   attrs: Dict[str, Any], dev: torch.device) -> ModuleContext:
+    """Cross-attention of q_len = toks query rows in prefill, one in
+    decode, against an encoder memory of ctx rows (``enc_k``, ``enc_v``),
+    every key attended, as the reference builds it."""
+    d, hd, dt = cfg.d_model, cfg.resolved_head_dim, getattr(torch, cfg.dtype)
+    attrs.update({"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                  "head_dim": hd, "causal": False})
+
+    @torch.no_grad()
+    def fn(xattn, x, enc_k, enc_v):
+        return xattn(x, enc_k, enc_v, impl=backend)
+
+    def inputs(toks, reqs, ctx):
+        q_len = toks if phase == "prefill" else 1
+        return (TensorSpec((reqs, q_len, d), dt),
+                TensorSpec((reqs, ctx, cfg.n_kv_heads, hd), dt),
+                TensorSpec((reqs, ctx, cfg.n_kv_heads, hd), dt))
+    return ModuleContext("cross_attn", phase, backend, fn,
+                         _param_specs("cross_attn", cfg), inputs, attrs, cfg, dev)
 
 
 def _mamba_context(cfg: ModelConfig, phase: str, backend: str,

@@ -1,8 +1,9 @@
 """The rest of the dense family in the port — command-r7b, yi-9b,
 starcoder2-15b and granite-20b — and the ``chunked`` backend, against the
 JAX package on the same parameters and inputs (smoke configs, float32, CPU);
-the config files of these and of the MLA, MoE and hybrid families
-(tests/test_torch_{mla,moe,hybrid}.py hold their models).
+the config files of these, of the MLA, MoE and hybrid families
+(tests/test_torch_{mla,moe,hybrid}.py hold their models), and of the enc-dec
+and frontend models (tests/test_torch_{encdec,frontend}.py).
 
 Tolerances: logits within 1e-4 of the largest logit.  The two frameworks
 sum their float32 matmuls in different orders, and on these configs that
@@ -45,7 +46,10 @@ ARCHS = ["command-r7b", "yi-9b", "starcoder2-15b", "granite-20b"]
 MODULES = {"command-r7b": "command_r7b", "yi-9b": "yi_9b",
            "starcoder2-15b": "starcoder2_15b", "granite-20b": "granite_20b",
            "minicpm3-4b": "minicpm3_4b", "olmoe-1b-7b": "olmoe_1b_7b",
-           "hymba-1.5b": "hymba_1_5b"}
+           "hymba-1.5b": "hymba_1_5b",
+           "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+           "internvl2-26b": "internvl2_26b",
+           "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b"}
 TOL, XLA_TOL = 1e-4, 2e-5
 MAX_SEQ = 128
 

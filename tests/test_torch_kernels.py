@@ -449,10 +449,15 @@ def _to(dev, *ts):
 
 
 #: the kernel-test cases with q_offset 0, then a negative q_offset (its
-#: first rows see no key), and llama3's geometry causal and windowed
+#: first rows see no key), llama3's geometry causal and windowed, and
+#: seamless-m4t's cross-attention, non-causal (MHA 16/16, D 64): decode's
+#: one query row and a prefill chunk against a 4096-row encoder memory,
+#: and a ragged Sq != Sk
 GPU_FLASH_CASES = [c + (0,) for c in FLASH_CASES] + [
     (1, 16, 64, 2, 1, 32, True, 4, -8), (2, 1024, 1024, 32, 8, 128, True, 0, 0),
-    (1, 512, 512, 32, 8, 128, True, 256, 0)]
+    (1, 512, 512, 32, 8, 128, True, 256, 0),
+    (8, 1, 4096, 16, 16, 64, False, 0, 0), (2, 128, 4096, 16, 16, 64, False, 0, 0),
+    (2, 77, 300, 4, 2, 64, False, 0, 0), (3, 1, 500, 8, 8, 128, False, 0, 0)]
 
 
 @pytest.mark.gpu
@@ -477,8 +482,30 @@ def test_gpu_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, d,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,h,kv,d", [(2, 1, 16, 16, 64), (1, 130, 8, 2, 128)])
+def test_gpu_flash_kernel_at_an_empty_memory(cuda, dtype, b, sq, h, kv, d):
+    """Sk = 0 (a cross-attention point at ctx 0): the kernel runs zero key
+    tiles and writes zeros and a fully masked row's lse, as its plain
+    version."""
+    q = torch.randn((b, sq, h, d), device=cuda).to(getattr(torch, dtype))
+    k = torch.empty((b, 0, kv, d), dtype=q.dtype, device=cuda)
+    n = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, k, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n + 1
+    pout, plse = fa.flash_attention_fwd_plain(q, k, k, causal=False)
+    assert out.shape == q.shape and not out.any() and not pout.any()
+    assert torch.equal(lse.cpu(), plse.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,h,kv,smax,d,win", DECODE_CASES + [
-    (8, 32, 8, 2048, 128, 0), (8, 32, 8, 2048, 128, 256)])
+    (8, 32, 8, 2048, 128, 0), (8, 32, 8, 2048, 128, 256),
+    # internvl2-26b's G = 6 and llama4-maverick's G = 5 (KV 8, D 128),
+    # seamless-m4t's decoder self-attention G = 1 (KV 16, D 64)
+    (8, 48, 8, 2048, 128, 0), (8, 40, 8, 2048, 128, 0),
+    (8, 16, 16, 2048, 64, 0)])
 def test_gpu_decode_kernel_matches_plain(cuda, dtype, b, h, kv, smax, d, win):
     ((_, q), (_, kc), (_, vc)), (_, lengths) = _decode_inputs(
         (b, h, kv, smax, d, win), dtype=dtype)

@@ -20,7 +20,6 @@ from repro.models import build_model
 from repro.models.transformer import _write_chunk as jax_write_chunk
 from repro_torch.configs import (get_config, get_smoke_config,
                                  model_config_taint_values)
-from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model, params_from_jax
 from repro_torch.models.attention import REFERENCE_IMPL
 from repro_torch.models.transformer import _write_chunk
@@ -93,19 +92,6 @@ def test_reference_impl_map():
     assert REFERENCE_IMPL == {"xla": "xla", "chunked": "chunked",
                               "chunked_naive": "chunked_naive",
                               "kernel": "pallas"}
-
-
-def test_unported_block_kind_raises():
-    """Enc-dec (cross-attention blocks) waits for a later slice: the model
-    and a block of it both refuse it."""
-    from repro_torch.models.transformer import Block, layer_descs
-    encdec = ModelConfig(name="encdec-smoke", family="encdec", n_layers=2,
-                         d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-                         vocab_size=64, n_enc_layers=2, dtype="float32")
-    with pytest.raises(NotImplementedError):
-        Model(encdec, device="cpu")
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        Block(encdec, layer_descs(encdec)[0], device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's MoE family — ``models/moe.py``, the ``moe`` block and context,
 olmoe-1b-7b — against the JAX package's, on the same parameters and inputs:
 ``olmoe-smoke`` (3 MoE layers, 8 experts top-2, float32, CPU) and
-``llama4-maverick-smoke`` with its vision frontend cut (``frontend="none"``;
-MoE on every other layer, ``moe_interleave=2``, one shared expert, top-1).
+``llama4-maverick-smoke`` (MoE on every other layer, ``moe_interleave=2``,
+one shared expert, top-1), here without frames: its vision frontend is held
+in tests/test_torch_frontend.py.
 
 Tolerances: logits within 1e-4 of the largest logit, as
 tests/test_torch_dense.py holds the dense family; the MoE outputs and aux
@@ -12,8 +13,6 @@ same in both packages.  Tests marked ``gpu`` hold the dropping path in a
 CUDA graph against its eager calls, and the decode kernel at olmoe's GQA
 group of 1, on a card.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +27,6 @@ from repro.serving.context import build_context as jax_build_context
 from repro.serving.context import phases_for as jax_phases_for
 from repro.serving.engine import Engine as JaxEngine
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import decode_attention as da
 from repro_torch.models import Model, params_from_jax
 from repro_torch.models import moe
@@ -44,24 +42,8 @@ TOL = 1e-4
 MAX_SEQ = 64
 
 
-def _jax_config(arch):
-    jcfg = jax_smoke_config(arch)
-    return jcfg.with_overrides(frontend="none") if arch == LLAMA4 else jcfg
-
-
-def _port_config(arch):
-    """llama4-maverick is not registered in the port (its frontend waits
-    for a later slice): its smoke config with the frontend cut is rebuilt
-    field by field from the reference's."""
-    if arch == LLAMA4:
-        jcfg = _jax_config(arch)
-        return ModelConfig(**{f.name: getattr(jcfg, f.name)
-                              for f in dataclasses.fields(jcfg)})
-    return get_smoke_config(arch)
-
-
 def _pair(arch):
-    cfg, jcfg = _port_config(arch), _jax_config(arch)
+    cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
     jm = build_model(jcfg)
     jp = jm.init(jax.random.key(0))
     model = Model(cfg, device="cpu")

@@ -39,6 +39,7 @@ from repro_torch.core.opset import (ModuleEntry, OpEntry, detach_op_entry,
 from repro_torch.core.plan import build_plan, execute_plan, read_journal
 from repro_torch.core.profiler import QUICK_SWEEP, DoolyProf
 from repro_torch.core.runner import trace_model
+from repro_torch.core import signature as signature_mod
 from repro_torch.core.signature import (fingerprint, module_entry_signature,
                                         op_entry_signature)
 from repro_torch.parallel import roofline
@@ -144,6 +145,61 @@ def test_fingerprint_fallbacks_are_counted(monkeypatch):
     sig = op_entry_signature(entry, "cpu")
     assert sig.fingerprint == f"prim:{entry.op.prim}"
     assert fingerprint.fallbacks == before + 1
+
+
+S, K = "spin_kernel", "gemm"
+FULL = [S, S, S, K, S, K, S, K, S]         # three calls, each closed by S
+
+
+@pytest.mark.parametrize("sessions,expected,taken", [
+    # every call's kernel lost in a session that kept its outer sentinels
+    ([[S, S, S, S, S, S], FULL, [K, S, K, S, K, S], FULL], {K}, 4),
+    # the three leading sentinels and every call's kernel lost
+    ([[S], FULL, FULL], {K}, 3),
+    # each session lost the kernels of two of its three calls
+    ([[S, S, S, S, S, K, S], [S, S, K, S, S, S]], {K}, 2),
+    # a view launches nothing: two empty sessions agree
+    ([[S] * 6, [S] * 6], set(), 2),
+    # in eight sessions no two that count agree; a ninth is not taken
+    ([FULL, [S] * 6] + [[K, S]] * 6 + [FULL], RuntimeError, 8),
+])
+def test_cuda_fingerprint_needs_two_sessions_that_agree(monkeypatch, sessions,
+                                                        expected, taken):
+    """A profiler session on the card can lose activities between its
+    sentinels; a session's set is the union over its three calls, and a
+    set is kept only once two sessions give it."""
+    from torch.profiler import DeviceType
+    script = iter(sessions)
+
+    class Event:
+        def __init__(self, name, start):
+            self.name, self.device_type = name, DeviceType.CUDA
+            self.time_range = type("Range", (), {"start": start})()
+
+    class Session:
+        def __init__(self, activities):
+            self.names = next(script)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [Event(n, t) for t, n in enumerate(self.names)]
+
+    monkeypatch.setattr(torch.profiler, "profile", Session)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    if expected is RuntimeError:
+        with pytest.raises(RuntimeError, match="agreed"):
+            signature_mod._cuda_kernels(lambda: calls.append(1), ())
+    else:
+        assert signature_mod._cuda_kernels(lambda: calls.append(1), ()) == expected
+    assert len(sessions) - sum(1 for _ in script) == taken
+    assert len(calls) == 1 + 3 * taken         # a first call, three a session
 
 
 def test_detached_op_entry_pickles_and_runs_alike():

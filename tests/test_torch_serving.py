@@ -25,8 +25,9 @@ from repro.serving import scheduler as jax_scheduler
 from repro.serving.context import build_context as jax_build_context
 from repro.serving.engine import Engine as JaxEngine
 from repro.serving.engine import bucket_chunk as jax_bucket_chunk
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import CORPUS_ARCHS, get_smoke_config
 from repro_torch.core.backends import cpu_wallclock, cuda_events
+from repro_torch.core.database import LatencyDB
 from repro_torch.core.profiler import SweepConfig
 from repro_torch.models import params_from_jax
 from repro_torch.serving import (Engine, SchedulerConfig,
@@ -348,6 +349,53 @@ def test_chip_smoke_phases_on_cpu(capsys, tmp_path):
     # h100_analytical prices a point alike in every process
     assert cli["agreement"]["points"] > 0 and cli["agreement"]["max"] == 0
     assert "[13 cli] profile" in out and "[13 cli] optimize" in out
+    _phase_15_on_cpu(cs, capsys, tmp_path)
+
+
+def _phase_15_on_cpu(cs, capsys, tmp_path):
+    """chip_smoke phase 15 at the smoke configs: the stub frontends served
+    text-only (llama4 cut to 2 layers) and prefilled with frames, the
+    enc-dec prefill and decode steps, their context points, the twelve-model
+    corpus plan; and phase 3's kernel cases at phase 15's shapes."""
+    cpu = torch.device("cpu")
+    fronts = [get_smoke_config(n) for n in (cs.VLM, cs.LLAMA4, cs.SEAMLESS)]
+    kernels = cs.phase_kernels(get_smoke_config("llama3-8b"), cpu,
+                               get_smoke_config(cs.GRANITE), family_cfgs=fronts,
+                               flash_shapes=cs.frontend_flash_shapes(*fronts))
+    timed = kernels["flash_attention_fwd"]["timed"]
+    assert {"seamless-smoke encoder B=8 S=16 4/4 heads D=24 non-causal",
+            "seamless-smoke cross prefill B=8 Sq=128 Sk=16",
+            "seamless-smoke cross decode B=8 Sq=1 Sk=16",
+            "internvl2-smoke prefill B=2 S=528 4/2 heads D=32"} <= set(timed)
+    assert "seamless-smoke B=8 G=1 D=24 random lengths" in \
+        kernels["decode_attention"]["timed"]
+    vlm = cs.phase_frontend(fronts[0], cpu, "vlm")
+    llama4 = cs.phase_frontend(fronts[1], cpu, "llama4", layers=cs.LLAMA4_LAYERS,
+                               kinds=("self_attn", "moe"))
+    for out in (vlm, llama4):
+        assert out["launches"] == (0, 0, 0, 0) and out["graph_cosine"] is None
+        assert len(out["makespans_s"]) == 2 and out["prefill"]["cosine"] > 0.999
+        assert all(len(v) == 2 and min(v) > 0 for p in out["points"].values()
+                   for v in p.values())
+    assert llama4["layers"] == (4, 2) and set(llama4["points"]) == {"self_attn", "moe"}
+    encdec = cs.phase_encdec(fronts[2], cpu)
+    assert encdec["min_cosine"] > 0.999 and len(encdec["step_ms"]) == cs.ENCDEC_RUN[2]
+    assert set(encdec["points"]) == {
+        ("prefill", t, r, c) for t in cs.CROSS_PREFILL_TOKS for r in cs.CROSS_REQS
+        for c in cs.CROSS_PREFILL_CTX} | {
+        ("decode", 1, r, c) for r in cs.CROSS_REQS for c in cs.CROSS_DECODE_CTX}
+    base = tmp_path / "base15.sqlite"
+    LatencyDB(str(base)).close()
+    plan = cs.phase_corpus_plan(CLI_ARGS, cpu, models=CORPUS_ARCHS, full=False,
+                                base_db=base, db=tmp_path / "phase15.sqlite")
+    cov = plan["coverage"]
+    assert len(cov["models"]) == 2 * len(CORPUS_ARCHS)
+    assert plan["measured"] == cov["plan_tasks"] > 0 and cov["shared_tasks"] > 0
+    assert "cross_attn" in plan["by_kind_s"] and 0 < plan["spent_s"] < plan["naive_s"]
+    out = capsys.readouterr().out
+    for tag in ("[15 vlm]", "[15 llama4]", "[15 encdec]", "[15 plan]",
+                "reduced: n_layers 4 → 2", "cross_attn points", "corpus task dedup"):
+        assert tag in out
 
 
 def test_chip_smoke_train_counts_remat_launches(monkeypatch):

@@ -1,5 +1,6 @@
 """The port's tainted runner — ``core.{taint,tracer,callgraph,runner,opset}``
-— against the JAX package's, on the six smoke configs the port serves.
+— against the JAX package's, on the twelve smoke configs of the corpus
+(an enc-dec model and two frontends traced with the reference's frames).
 
 The port traces aten ops under a ``TorchDispatchMode`` where the reference
 walks a jaxpr, so their op entries differ by design (an aten ``mm`` on a
@@ -36,7 +37,8 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3-8b", "command-r7b", "yi-9b", "starcoder2-15b", "granite-20b",
-         "falcon-mamba-7b", "minicpm3-4b", "olmoe-1b-7b", "hymba-1.5b"]
+         "falcon-mamba-7b", "minicpm3-4b", "olmoe-1b-7b", "hymba-1.5b",
+         "seamless-m4t-large-v2", "internvl2-26b", "llama4-maverick-400b-a17b"]
 LINEAR = ("mm", "addmm", "bmm")
 
 
@@ -169,9 +171,13 @@ def both(request):
 
 
 def test_dummy_prompt_matches_the_reference(both):
+    """(batch, seq) and, for an enc-dec model or a frontend, the frames'
+    s_front: a third collision-free prime."""
     _, jtrace, _, ptrace, _ = both
-    assert (ptrace.batch, ptrace.seq, ptrace.retraces) == \
-        (jtrace.batch, jtrace.seq, jtrace.retraces)
+    assert (ptrace.batch, ptrace.seq, ptrace.n_frontend, ptrace.retraces) == \
+        (jtrace.batch, jtrace.seq, jtrace.n_frontend, jtrace.retraces)
+    cfg = ptrace.cfg
+    assert (ptrace.n_frontend > 0) == (cfg.is_encdec or cfg.frontend != "none")
 
 
 def test_stateful_module_entries_match_the_reference(both):
@@ -206,7 +212,11 @@ def test_stateful_module_entries_rerun_their_module(both):
     me = next(e for e in entries
               if isinstance(e, opset.ModuleEntry) and e.context_kind)
     out = me.run(device="cpu")
-    assert tuple(out.shape) == (ptrace.batch, ptrace.seq, ptrace.cfg.d_model)
+    cfg = ptrace.cfg
+    # the first stateful module sees the frames: the encoder's own, or
+    # prepended to the tokens by a frontend
+    seq = ptrace.n_frontend if cfg.is_encdec else ptrace.seq + ptrace.n_frontend
+    assert tuple(out.shape) == (ptrace.batch, seq, cfg.d_model)
     assert torch.isfinite(out).all()
 
 
