@@ -9,7 +9,8 @@ It drives the port's main paths for llama3-8b, falcon-mamba-7b,
 granite-20b, minicpm3-4b (MLA), olmoe-1b-7b (MoE), hymba-1.5b (hybrid),
 internvl2-26b and llama4-maverick-400b-a17b (stub frontends) and
 seamless-m4t-large-v2 (enc-dec) at full width in bf16 (random weights from
-seed 0) and checks them, one line per phase:
+seed 0), and lays the ten assigned architectures out on the production
+meshes (the dry run), and checks them, one line per phase:
 
 1. device  — the card's name and count, its name and power limit from
              nvidia-smi; TF32 off for matmuls and convolutions.
@@ -208,10 +209,30 @@ seed 0) and checks them, one line per phase:
              13's merged DB: per-model Table-2 rows, the task dedup beside
              the reference's 83.7 % (smoke, dry run) and the paper's 56.4 %,
              the GPU-seconds spent and saved.
+16. parallel and launch — ``[16 dryrun]``: ``python -m
+             repro_torch.launch.dryrun`` in child processes started first
+             and run beside the rest of the phase: llama3-8b at the four
+             assigned shapes on both production meshes, every other
+             assigned architecture at decode_32k on the single-pod mesh, all
+             at full configs on meta over fake 256/512-rank process groups;
+             every cell's line and each child's wall seconds; every
+             llama3-8b cell must be ok (long_500k: the reference's skip).
+             ``[16 mesh]`` (a child process over a one-rank NCCL group,
+             ``python3 chip_smoke.py --mesh-serving``): llama3-8b at full
+             width serves the phase-4 requests from graphs outside and
+             inside ``use_mesh(make_host_mesh(), SERVE_RULES)``, and
+             prefills 1024 tokens each way: equal tokens, logits and kernel
+             launches; the dry run's per-device parameter bytes on the host
+             mesh equal the bytes the card holds.  ``[16 comm]`` and
+             ``[16 roofline]``: ``profile_comm`` into a copy of phase 12's
+             DB and the roofline backend's makespans of phase 12's score
+             trace at tp 1, 2, 4 and 8, a model on NVLink's data-sheet
+             figure.  The phase is held to 180 s.
 A JSON line then lists every kernel with its launches on the main paths,
 its largest error against its plain version, and its times.
 ``python3 chip_smoke.py --profile-simulate`` runs phase 12 alone,
 ``python3 chip_smoke.py --cli MODULE ARGS...`` runs one CLI step of phase 13,
+``python3 chip_smoke.py --mesh-serving`` runs phase 16's mesh serving,
 and ``python3 chip_smoke.py --phase15`` runs phases 1-3 and 15 (its plan on
 the merged DB that phase 13 of a whole run left in build/; it exits 1
 without one).
@@ -226,6 +247,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import runpy
 import shutil
@@ -242,8 +264,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api import (ProfileStore, SchedSpec,  # noqa: E402
                               WorkloadSpec, expand_grid)
-from repro_torch.configs import (CORPUS_ARCHS, get_config,  # noqa: E402
-                                 get_smoke_config)
+from repro_torch.configs import (ASSIGNED_ARCHS, CORPUS_ARCHS,  # noqa: E402
+                                 get_config, get_smoke_config)
 from repro_torch.core.profiler import QUICK_SWEEP, SweepConfig  # noqa: E402
 from repro_torch.core.signature import fingerprint  # noqa: E402
 from repro_torch.parallel.roofline import default_hardware  # noqa: E402
@@ -365,6 +387,20 @@ PHASE12_DB = CLI_DIR.parent / "phase12.sqlite"
 PHASE14_DB = CLI_DIR.parent / "phase14.sqlite"
 PHASE15_DB = CLI_DIR.parent / "phase15.sqlite"
 AGREE_LIMIT = 0.10
+#: phase 16: the dry run's cells, as groups of (arch, shape or None for
+#: every shape, mesh) run one after the other in one child process per
+#: group, the groups side by side: llama3-8b at every shape on both meshes,
+#: every other assigned architecture at decode_32k on the single-pod mesh
+DRYRUN_MAIN = "llama3-8b"
+DRYRUN_GROUPS = [
+    [(DRYRUN_MAIN, None, "both")],
+    [(a, "decode_32k", "single") for a in ASSIGNED_ARCHS[:5]],
+    [(a, "decode_32k", "single") for a in ASSIGNED_ARCHS[5:]]]
+DRYRUN_LEFT_OUT = ("every other architecture's train_4k, prefill_32k and "
+                   "long_500k, and its decode_32k on the multi-pod mesh")
+PHASE16_LIMIT_S = 180.0
+PHASE16_DB = CLI_DIR.parent / "phase16.sqlite"
+COMM_TP, COMM_TP_OPS = (1, 2, 4, 8), "(all-reduce, all-gather, reduce-scatter)"
 
 #: the libraries whose bf16 path runs on the tensor cores, and the SASS
 #: instructions of which one must appear: wgmma (HGMMA), or mma.sync (HMMA)
@@ -2617,10 +2653,281 @@ def phase_cli(workdir: Path, cli_args: list, device, *, models, full: bool,
             "flash_launches": launches[1]}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: parallel and launch
+# ---------------------------------------------------------------------------
+
+def _dryrun_args(arch: str, shape, mesh: str) -> str:
+    """``python -m repro_torch.launch.dryrun``'s arguments for one command
+    (``shape`` None: every shape)."""
+    return f"--arch {arch} --mesh {mesh}" + (f" --shape {shape}" if shape else "")
+
+
+def phase_dryrun_start(groups, workdir: Path) -> list:
+    """Starts one child process for each group of cells, all at once: each
+    runs its cells one after the other (``python -m
+    repro_torch.launch.dryrun``), its output in ``workdir``."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, group in enumerate(groups):
+        log = workdir / f"dryrun{i}.log"
+        script = "; ".join(
+            f"{sys.executable} -m repro_torch.launch.dryrun {_dryrun_args(*c)} "
+            f"--out {workdir / f'dryrun{i}.jsonl'} || true" for c in group)
+        for old in (log, workdir / f"dryrun{i}.jsonl"):
+            old.unlink(missing_ok=True)
+        env = dict(os.environ,
+                   PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        procs.append((group, log, workdir / f"dryrun{i}.jsonl",
+                       time.perf_counter(), subprocess.Popen(
+                           ["bash", "-c", script], stdout=log.open("w"),
+                           stderr=subprocess.STDOUT, env=env,
+                           cwd=Path(__file__).resolve().parent)))
+    return procs
+
+
+def phase_dryrun_finish(procs, main_arch: str, timeout: float,
+                        n_main: int = 8) -> dict:
+    """Waits for the dry run's children; prints every cell's line and each
+    child's wall seconds.  Fails unless ``main_arch`` has ``n_main`` cells,
+    each ok or the reference's long_500k skip."""
+    recs, walls = [], []
+    for group, log, out, t0, proc in procs:
+        try:
+            proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise RuntimeError(f"phase 16 dry run of {group} passed {timeout} s")
+        walls.append(time.perf_counter() - t0)
+        lines = [x for x in log.read_text().splitlines()
+                 if re.match(r"\[(ok|skip|error)\] ", x)]
+        got = [json.loads(x) for x in out.read_text().splitlines()] \
+            if out.exists() else []
+        _require(len(lines) == len(got) > 0,
+                 f"the dry run of {group} reported its cells ({len(got)})")
+        print(f"  child {len(walls)} ({len(got)} cells) in {walls[-1]:.1f} s "
+              "wall:")
+        for line in lines:
+            print(f"    {line}")
+        recs += got
+    main = [r for r in recs if r["arch"] == main_arch]
+    bad = [r for r in main if not (r["status"] == "ok" or (
+        r["status"] == "skip" and r["shape"] == "long_500k"))]
+    _require(len(main) == n_main and not bad,
+             f"every {main_arch} cell is ok or the long_500k skip "
+             f"({[(r['shape'], r['mesh'], r['status']) for r in bad]})")
+    errors = [(r["arch"], r["shape"], r["mesh"], r["error"].splitlines()[0])
+              for r in recs if r["status"] == "error"]
+    return {"cells": [{k: r.get(k) for k in (
+        "arch", "shape", "mesh", "status", "compile_s", "bytes_per_device",
+        "peak_bytes_per_device", "roofline", "useful_flops_ratio")}
+        for r in recs], "errors": errors, "wall_s": walls}
+
+
+def _argmaxes(engine) -> list:
+    """Wraps the engine's step functions to keep each step's argmax tokens;
+    returns the list they are appended to."""
+    seen = []
+
+    def watch(step):
+        def run(*a, **kw):
+            logits = step(*a, **kw)
+            seen.append(torch.argmax(logits, dim=-1).tolist())
+            return logits
+        return run
+    for name in ("_chunk_graph", "_chunk_eager", "_decode_graph", "_decode_eager"):
+        setattr(engine, name, watch(getattr(engine, name)))
+    return seen
+
+
+def phase_mesh_serving(cfg, device, mesh) -> dict:
+    """The same model code on the card under a mesh: the Engine serves the
+    phase-4 requests once outside and once inside ``use_mesh(mesh,
+    SERVE_RULES)`` (graphs captured by the first run, replayed by the
+    second), then a prefill of PREFILL_LEN tokens each way; the tokens,
+    logits and kernel launches must be equal.  The dry run's per-device
+    parameter bytes on ``mesh`` must be the bytes the card holds."""
+    from contextlib import nullcontext
+
+    from repro_torch.launch.dryrun import shard_bytes, tree_shardings
+    from repro_torch.parallel.sharding import SERVE_RULES, use_mesh
+    engine = Engine(cfg, sched_config=SCHED, max_seq=MAX_SEQ, impl="kernel",
+                    seed=0, device=device)
+    seen = _argmaxes(engine)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, PREFILL_LEN))
+    runs = {}
+    for where in ("plain", "mesh"):
+        engine.reset()
+        del seen[:]
+        _, requests = _requests(cfg)
+        with (use_mesh(mesh, SERVE_RULES) if where == "mesh" else nullcontext()):
+            _zero_counts()
+            engine.run(requests)
+            serve_counts = _counts()
+            _zero_counts()
+            logits, _ = engine.model.prefill(tokens, max_seq=MAX_SEQ,
+                                             impl="kernel")
+            prefill_counts = _counts()
+        _require(all(r.done and r.generated == NEW_TOKENS for r in requests),
+                 f"every request finished ({where})")
+        runs[where] = {"tokens": [list(t) for t in seen], "serve": serve_counts,
+                       "prefill": prefill_counts, "logits": logits.float().cpu(),
+                       "makespan": engine.clock}
+    plain, meshed = runs["plain"], runs["mesh"]
+    _require(plain["tokens"] == meshed["tokens"],
+             "the engine gives the same tokens under the mesh")
+    _require((plain["serve"], plain["prefill"]) == (meshed["serve"],
+                                                    meshed["prefill"]),
+             f"the same kernel launches under the mesh ({plain['serve']}, "
+             f"{plain['prefill']} vs {meshed['serve']}, {meshed['prefill']})")
+    _require(torch.equal(plain["logits"], meshed["logits"]),
+             "the same prefill logits under the mesh")
+    if device.type == "cuda":
+        _require(plain["serve"][0] > 0 and plain["prefill"][1] > 0,
+                 "serving launched the decode kernel and the prefill the "
+                 "flash forward")
+    model = engine.model
+    abstract = model.abstract_params()
+    dry = shard_bytes(abstract, tree_shardings(model.param_axes(), abstract,
+                                               mesh, SERVE_RULES))
+    held = sum(p.nbytes for p in model.parameters())
+    _require(dry == held, f"the dry run's per-device parameter bytes {dry} "
+             f"== the bytes the card holds {held}")
+    n_tok = sum(len(t) for t in plain["tokens"])
+    print(f"[16 mesh] {cfg.name}: {len(requests)} requests served from graphs "
+          f"outside and inside use_mesh({tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}, SERVE_RULES): {n_tok} step argmaxes equal; "
+          f"kernel launches (decode, flash fwd, flash bwd, scan) serving "
+          f"{plain['serve']} both times, prefill of {PREFILL_LEN} tokens "
+          f"{plain['prefill']} both times, logits equal; makespans "
+          f"{plain['makespan']:.4f} / {meshed['makespan']:.4f} s; parameter "
+          f"bytes per device {dry} (dry run on the host mesh) == {held} "
+          f"(held on the card); {_card(device)}")
+    out = {"decode_launches": plain["serve"][0] + meshed["serve"][0],
+           "flash_launches": plain["prefill"][1] + meshed["prefill"][1],
+           "serve_counts": list(plain["serve"]),
+           "prefill_counts": list(plain["prefill"]),
+           "param_bytes": held, "steps": len(plain["tokens"])}
+    del engine, model
+    _release(device)
+    return out
+
+
+MESH_TAG = "mesh-serving result: "
+
+
+def mesh_serving_main() -> int:
+    """``--mesh-serving``: phase 16b in this process, over a one-rank NCCL
+    group on the card."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        out = phase_mesh_serving(get_config("llama3-8b"), device,
+                                 make_host_mesh())
+    finally:
+        dist.destroy_process_group()
+    print(MESH_TAG + json.dumps(out))
+    return 0
+
+
+def phase_mesh_serving_process() -> dict:
+    """Runs phase 16b in a child process and returns its result."""
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--mesh-serving"], capture_output=True, text=True,
+                         timeout=600)
+    lines = run.stdout.splitlines()
+    print("\n".join(line for line in lines if not line.startswith(MESH_TAG)))
+    if run.returncode != 0:
+        print(run.stderr[-8000:], file=sys.stderr)
+        raise RuntimeError(f"phase 16b failed with exit code {run.returncode}")
+    tagged = [line for line in lines if line.startswith(MESH_TAG)]
+    _require(len(tagged) == 1, "phase 16b reported one result")
+    return json.loads(tagged[0][len(MESH_TAG):])
+
+
+def phase_comm(cfg, device, *, base_db: Path, db: Path, hardware: str,
+               tps=COMM_TP) -> dict:
+    """``profile_comm`` into a copy of ``base_db`` (its 54 rows' span), and
+    the roofline backend's makespans of phase 12's score trace at each tp:
+    a model on NVLink's data-sheet figure, not a measurement."""
+    from repro_torch.parallel.roofline import NVLINK_BIDIR_BW, NVLINK_BW
+    for old in db.parent.glob(db.name + "*"):
+        old.unlink()
+    shutil.copyfile(base_db, db)
+    with ProfileStore(str(db), hardware=hardware, oracle="h100_analytical",
+                      device=device) as store:
+        rows = store.profile_comm()
+        comm = store.db.conn.execute(
+            "SELECT MIN(latency_us), MAX(latency_us), COUNT(*) FROM comm_ops "
+            "WHERE topology = 'nvlink-ring'").fetchone()
+        _require(rows == comm[2] == 54, f"profile_comm landed 54 rows ({rows}, "
+                 f"{comm[2]})")
+        spans = {}
+        for tp in tps:
+            trace = sharegpt_like(SCORE["n"], rate=SCORE["rate"],
+                                  seed=SCORE["seed"], scale=SCORE["scale"],
+                                  vocab=cfg.vocab_size)
+            sim = store.simulator(cfg, sched_config=SCHED, max_seq=MAX_SEQ,
+                                  latency="roofline", tp=tp)
+            spans[tp] = sim.run(trace)["makespan"]
+    _require(all(math.isfinite(v) and v > 0 for v in spans.values()),
+             f"finite roofline makespans ({spans})")
+    print(f"[16 comm] profile_comm: {rows} rows (nvlink-ring, tp (2, 4, 8) x "
+          f"{COMM_TP_OPS} x 128 KiB-128 MiB) from {comm[0]:.4f} to "
+          f"{comm[1]:.4f} us: a ring model on NVLink's data-sheet figure "
+          f"({NVLINK_BW / 1e9:.0f} GB/s a direction, {NVLINK_BIDIR_BW / 1e9:.0f} "
+          f"GB/s both), not measured")
+    print(f"[16 roofline] {cfg.name}, phase 12's score trace ({SCORE['n']} "
+          f"requests): RooflineBackend makespans "
+          + ", ".join(f"tp {tp} {v:.6f} s" for tp, v in spans.items())
+          + " (a model on the H100's data-sheet peaks and NVLink's data-sheet "
+          f"figure, not a measurement; the card: {_card(device)})")
+    return {"comm_rows": rows, "comm_us": [comm[0], comm[1]],
+            "roofline_makespan_s": {str(k): v for k, v in spans.items()}}
+
+
+def phase16(device, *, groups=None, workdir: Path = None) -> dict:
+    """Phase 16: the dry run's children start first and run beside 16b (on
+    the card) and 16c; the phase's wall time is printed and held to its
+    limit."""
+    t0 = time.perf_counter()
+    groups = DRYRUN_GROUPS if groups is None else groups
+    workdir = workdir or CLI_DIR.parent / "dryrun"
+    procs = phase_dryrun_start(groups, workdir)
+    print(f"[16 dryrun] {sum(len(g) for g in groups)} commands in "
+          f"{len(groups)} child processes: {DRYRUN_MAIN} at every shape on both "
+          f"meshes, every other assigned architecture at decode_32k on the "
+          f"single-pod mesh, on meta over fake 256/512-rank groups; left out "
+          f"(the README's CPU command): {DRYRUN_LEFT_OUT}")
+    mesh = phase_mesh_serving_process()
+    comm = phase_comm(get_config("llama3-8b"), device, base_db=PHASE12_DB,
+                      db=PHASE16_DB, hardware=default_hardware())
+    dry = phase_dryrun_finish(procs, DRYRUN_MAIN, PHASE16_LIMIT_S)
+    wall = time.perf_counter() - t0
+    for arch, shape, mesh_name, err in dry["errors"]:
+        print(f"  error cell {arch} x {shape} ({mesh_name}): {err}")
+    print(f"[16 end] phase 16 in {wall:.1f} s (limit {PHASE16_LIMIT_S} s)")
+    _require(wall <= PHASE16_LIMIT_S, f"phase 16 took {wall:.1f} s")
+    return {"dryrun": dry, "mesh": mesh, "comm": comm, "wall_s": wall,
+            "decode_launches": mesh["decode_launches"],
+            "flash_launches": mesh["flash_launches"]}
+
+
 def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                  train: dict, mamba_serving: dict, mamba_prefill: dict,
                  loop: dict, cli: dict, families: dict = None,
-                 plan: dict = None, phase15: dict = None) -> dict:
+                 plan: dict = None, phase15: dict = None,
+                 phase16: dict = None) -> dict:
     """Launches are counted on the main paths: decode while serving llama3
     (one run), granite-20b and phase 14's families (one run each), over
     phase 12's loop (olmoe-1b-7b's scoring included) and sweep scoring and
@@ -2630,10 +2937,11 @@ def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
     hymba-1.5b (one run each) and over their prefills; phase 15's paths
     (``phase15``: its frontends' serving runs and prefills, the enc-dec
     prefill and decode steps, the corpus plan's CLI process) add their
-    decode and flash-forward launches."""
+    decode and flash-forward launches, and so do phase 16's serving and
+    prefill under the mesh and outside it (``phase16``)."""
     families, plan = families or {}, plan or {}
     fam = list(families.values())
-    p15 = list((phase15 or {}).values())
+    p15 = list((phase15 or {}).values()) + ([phase16] if phase16 else [])
     launches = {"decode_attention": serving["decode_launches"]
                 + granite["decode_launches"] + loop["decode_launches"]
                 + cli["decode_launches"] + plan.get("decode_launches", 0)
@@ -2711,6 +3019,8 @@ def main() -> int:
         return profile_simulate_main()
     if sys.argv[1:] == ["--phase15"]:
         return phase15_main()
+    if sys.argv[1:] == ["--mesh-serving"]:
+        return mesh_serving_main()
     cfg, mcfg = get_config("llama3-8b"), get_config(MAMBA)
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -2742,9 +3052,10 @@ def main() -> int:
     plan = phase_family_plan([], device, models=PLAN_MODELS, full=True,
                              base_db=CLI_DIR / "merged.sqlite", db=PHASE14_DB)
     p15 = phase15(frontends, device, CLI_DIR / "merged.sqlite")
+    p16 = phase16(device)
     print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill, loop, cli, served, plan, p15)
+                 mamba_prefill, loop, cli, served, plan, p15, p16)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.api.backends``, with the same arithmetic: chunk
 buckets come from the port's engine and the roofline's peaks from the
-port's ``parallel.roofline`` (the H100's by default).  The roofline has no
-interconnect model yet, so ``RooflineBackend`` refuses ``tp > 1``.
+port's ``parallel.roofline`` (the H100's by default), its collective term
+from NVLink's data-sheet figure (``parallel.roofline.NVLINK_BW``).
 
 The paper's headline deliverable is that Dooly's latency database becomes a
 *drop-in backend* for existing simulators (cf. Vidur's execution-time
@@ -535,12 +535,12 @@ class RooflineBackend(PlanBackend):
     FLOP/s of the bf16 tensor cores and its HBM bandwidth) to per-call
     workload points: a model call costs max(compute, memory) seconds where
 
-    * compute  = 2 * N_active * tokens / peak
+    * compute    = 2 * N_active * tokens / (peak * tp)
       (+ the attention score/value term, quadratic in context),
-    * memory   = (weight bytes + KV-cache traffic) / HBM bw.
-
-    The reference's collective term needs interconnect constants, which
-    come with the multi-GPU slice: ``tp > 1`` raises until then.
+    * memory     = (weight bytes / tp + KV-cache traffic) / HBM bw,
+    * collective = one ring all-reduce of the activations per layer over
+      NVLink (0 at tp = 1): a model on NVIDIA's data-sheet figure, not a
+      measurement.
 
     Deliberately coarse — it exists as the zero-measurement baseline a
     drop-in backend seam makes possible, and for hardware what-ifs (pass
@@ -557,16 +557,13 @@ class RooflineBackend(PlanBackend):
         super().__init__(cfg, sched_config=sched_config, max_seq=max_seq,
                          overhead_s=overhead_s,
                          chunk_overhead_s=chunk_overhead_s)
-        if tp > 1:
-            raise NotImplementedError(
-                "RooflineBackend: tp > 1 needs interconnect constants, which "
-                "the port does not have yet")
         peaks = R.peaks(R.H100)
         self.tp = tp
         self.dtype_bytes = dtype_bytes
         self.peak_flops = (peaks.peak_flops(torch.bfloat16)
                            if peak_flops is None else peak_flops)
         self.hbm_bw = peaks.hbm_bw if hbm_bw is None else hbm_bw
+        self.link_bw = R.NVLINK_BW
         self.n_active = float(cfg.active_param_count())
 
     def _point_seconds(self, phase: str, toks: int, reqs: int,
@@ -588,8 +585,13 @@ class RooflineBackend(PlanBackend):
         if kv_heads:
             kv_row = 2.0 * layers * kv_heads * head * b
             hbm += kv_row * (span * max(reqs, 1) + new_toks)
+        # collective: one ring all-reduce of the activations per layer
+        coll = 0.0
+        if self.tp > 1:
+            wire = 2.0 * (self.tp - 1) / self.tp
+            coll = (layers * new_toks * cfg.d_model * b * wire) / self.link_bw
         return max(flops / (self.peak_flops * self.tp / 1.0),
-                   hbm / self.hbm_bw)
+                   hbm / self.hbm_bw, coll)
 
     def predict_points(self, points: Sequence[PointKey]) -> np.ndarray:
         return np.array([self._point_seconds(*p) for p in points])

@@ -139,6 +139,11 @@ class ProfileStore:
                          sweep=sweep or self.profile_sweep,
                          device=self.device)
 
+    def profile_comm(self, **kw) -> int:
+        """Fill the communication sub-schema (see
+        ``DoolyProf.profile_comm``); returns the row count."""
+        return self.profiler().profile_comm(**kw)
+
     def is_profiled(self, cfg: ModelConfig, *, backend: str = "xla",
                     tp: int = 1, hardware: Optional[str] = None) -> bool:
         cid = self.db.config_id(cfg.name, backend,

@@ -42,8 +42,10 @@ substituted for oracle calls, so reports, dedup accounting, and the
 one-transaction flush are identical to a serial run (bit-identical rows
 under a deterministic oracle).
 
-The reference's ``profile_comm`` models a TPU interconnect and comes with
-the multi-GPU slice; the DB keeps its comm tables.
+``profile_comm`` fills the DB's communication sub-schema from a ring
+model of the collectives on NVLink's data-sheet figure
+(``parallel.roofline.NVLINK_BW``), as the reference's does on its TPU
+interconnect: nothing is measured.
 """
 from __future__ import annotations
 
@@ -67,9 +69,17 @@ from repro_torch.core.runner import ModelTrace, trace_model
 from repro_torch.core.signature import (LINEAR_OPS, Signature,
                                         module_entry_signature,
                                         op_entry_signature)
+from repro_torch.parallel import roofline as _roofline
 from repro_torch.parallel.roofline import default_hardware
 from repro_torch.serving.context import (ModuleContext, cached_build_context,
                                          phases_for)
+
+
+COMM_OPS = ("all-reduce", "all-gather", "reduce-scatter")
+COMM_SIZES = tuple(1 << s for s in range(17, 28, 2))   # 128 KiB .. 128 MiB
+#: the fixed latency of one collective in the ring model, in µs: a model
+#: constant (the reference's), not a measurement
+COMM_FIXED_US = 1.0
 
 
 def _module_of(entry) -> str:
@@ -655,6 +665,30 @@ class DoolyProf:
         return self._replay_nearest(points, key)
 
     # ------------------------------------------------------------------
+
+    def profile_comm(self, topology: str = "nvlink-ring",
+                     tp_degrees: Tuple[int, ...] = (2, 4, 8),
+                     ops: Tuple[str, ...] = COMM_OPS,
+                     sizes: Tuple[int, ...] = COMM_SIZES) -> int:
+        """Sweep the communication sub-schema: ring-model NVLink latency per
+        (topology, tp, op, bytes), all rows landed through
+        ``record_comm_bulk`` in one transaction.  Returns the row count."""
+        rows = [(topology, tp, op, nbytes,
+                 self._comm_latency_us(op, tp, nbytes))
+                for tp in tp_degrees for op in ops for nbytes in sizes]
+        with self.db.transaction():
+            self.db.record_comm_bulk(rows)
+        return len(rows)
+
+    @staticmethod
+    def _comm_latency_us(op: str, tp: int, nbytes: int,
+                         link_bw: Optional[float] = None) -> float:
+        """Ring collective: all-reduce moves 2(n-1)/n of the buffer per GPU,
+        gather/scatter half that, over ``link_bw`` bytes/s (default: the
+        NVLink data-sheet figure one way), plus ``COMM_FIXED_US``."""
+        bw = _roofline.NVLINK_BW if link_bw is None else link_bw
+        wire = (2.0 if op == "all-reduce" else 1.0) * (tp - 1) / tp
+        return COMM_FIXED_US + nbytes * wire / bw * 1e6
 
     @staticmethod
     def _replay_nearest(points: Dict[Tuple, float], key) -> float:

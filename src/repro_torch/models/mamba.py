@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models.layers import Linear, _normal
+from repro_torch.parallel.sharding import constrain
 
 SCAN_CHUNK = 512
 _PLAIN_IMPLS = ("auto", "xla", "chunked", "chunked_naive")
@@ -45,16 +46,19 @@ class Mamba(nn.Module):
         dtr, kw = cfg.resolved_dt_rank, cfg.ssm_conv
         lin = dict(device=device, dtype=dtype, generator=generator)
         f32 = dict(device=device, dtype=torch.float32)
-        self.in_proj = Linear(d, 2 * di, **lin)
+        self.axes = {"conv_w": (None, "ff"), "conv_b": ("ff",),
+                     "dt_w": (None, "ff"), "dt_b": ("ff",),
+                     "A_log": ("ff", None), "D": ("ff",)}
+        self.in_proj = Linear(d, 2 * di, axes=("embed_fsdp", "ff"), **lin)
         self.conv_w = _normal((kw, di), 0.5, **lin)
         self.conv_b = nn.Parameter(torch.zeros(di, device=device,
                                                dtype=dtype or torch.float32))
-        self.x_proj = Linear(di, dtr + 2 * st, **lin)
+        self.x_proj = Linear(di, dtr + 2 * st, axes=("ff", None), **lin)
         self.dt_w = _normal((dtr, di), dtr ** -0.5, **lin)
         self.dt_b = nn.Parameter(torch.zeros(di, **f32))
         self.A_log = nn.Parameter(torch.zeros(di, st, **f32))
         self.D = nn.Parameter(torch.ones(di, **f32))
-        self.out_proj = Linear(di, d, **lin)
+        self.out_proj = Linear(di, d, axes=("ff", "embed_fsdp"), **lin)
 
     def forward(self, x: torch.Tensor, **kw):
         """``mamba_mixer(self, x, cfg, **kw)``."""
@@ -110,6 +114,7 @@ def mamba_mixer(m: Mamba, x: torch.Tensor, cfg: ModelConfig,
     s = x.shape[1]
     kw = cfg.ssm_conv
     u_raw, z = m.in_proj(x).chunk(2, dim=-1)                   # (B,S,Di) each
+    u_raw = constrain(u_raw, "batch", None, "ff")
     if conv_tail is not None:
         u_pad = torch.cat([conv_tail.to(u_raw.dtype), u_raw], dim=1)
     else:

@@ -14,6 +14,10 @@ The module is held by its block as ``mla_attn`` (the reference's
 ``linear`` scopes: ``q_down``, ``q_up``, ``kv_down``, ``k_up``, ``v_up``,
 ``o_proj`` (the reference's ``wdq``, ``wuq``, ``wdkv``, ``wuk``, ``wuv``,
 ``o``), with the norms ``q_norm`` and ``kv_norm``.
+
+Under a mesh the query is constrained to heads over ``model`` as the
+reference's; the per-head views of the up-projections go through
+``attention.split_heads`` (see there).
 """
 from __future__ import annotations
 
@@ -26,8 +30,15 @@ from torch import nn
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_xla import flash_attention_xla
-from repro_torch.models.attention import _XLA_MAX_SEQ
+from repro_torch.models.attention import (_XLA_MAX_SEQ, _materialized,
+                                          _scatter_slot, attend, split_heads)
 from repro_torch.models.layers import Linear, RMSNorm, apply_rope
+from repro_torch.parallel.sharding import (_is_dtensor, constrain,
+                                           current_mesh, placements_for,
+                                           spec_for)
+
+#: a (B,S,H,D) query, key or value of MLA: heads over ``model``
+HEADS = ("batch", None, "heads", None)
 
 
 class MLA(nn.Module):
@@ -39,14 +50,18 @@ class MLA(nn.Module):
         d, h = cfg.d_model, cfg.n_heads
         qk = m.qk_nope_head_dim + m.qk_rope_head_dim
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.q_down = Linear(d, m.q_lora_rank, **kw)
+        down, up = ("embed_fsdp", "latent"), ("latent", "q_proj")
+        self.q_down = Linear(d, m.q_lora_rank, axes=down, **kw)
         self.q_norm = RMSNorm(m.q_lora_rank, cfg.norm_eps, device=device)
-        self.q_up = Linear(m.q_lora_rank, h * qk, **kw)
-        self.kv_down = Linear(d, m.kv_lora_rank + m.qk_rope_head_dim, **kw)
+        self.q_up = Linear(m.q_lora_rank, h * qk, axes=up, **kw)
+        self.kv_down = Linear(d, m.kv_lora_rank + m.qk_rope_head_dim,
+                              axes=down, **kw)
         self.kv_norm = RMSNorm(m.kv_lora_rank, cfg.norm_eps, device=device)
-        self.k_up = Linear(m.kv_lora_rank, h * m.qk_nope_head_dim, **kw)
-        self.v_up = Linear(m.kv_lora_rank, h * m.v_head_dim, **kw)
-        self.o_proj = Linear(h * m.v_head_dim, d, **kw)
+        self.k_up = Linear(m.kv_lora_rank, h * m.qk_nope_head_dim, axes=up,
+                           **kw)
+        self.v_up = Linear(m.kv_lora_rank, h * m.v_head_dim, axes=up, **kw)
+        self.o_proj = Linear(h * m.v_head_dim, d, axes=("q_proj", "embed_fsdp"),
+                             **kw)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 impl: str = "auto") -> torch.Tensor:
@@ -60,7 +75,7 @@ def project_q(mla: MLA, x: torch.Tensor, positions: torch.Tensor):
     b, s, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     cq = mla.q_norm(mla.q_down(x))
-    q = mla.q_up(cq).reshape(b, s, cfg.n_heads, qk)
+    q = split_heads(mla.q_up(cq), cfg.n_heads, qk, *HEADS)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
                                  dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -87,15 +102,15 @@ def mla_attention(mla: MLA, x: torch.Tensor, *, positions: torch.Tensor,
     h = cfg.n_heads
     q_nope, q_rope = project_q(mla, x, positions)
     c, k_rope = project_latent(mla, x, positions)
-    k_nope = mla.k_up(c).reshape(b, s, h, m.qk_nope_head_dim)
-    v = mla.v_up(c).reshape(b, s, h, m.v_head_dim)
-    q = torch.cat([q_nope, q_rope], dim=-1)
+    k_nope = split_heads(mla.k_up(c), h, m.qk_nope_head_dim, *HEADS)
+    v = split_heads(mla.v_up(c), h, m.v_head_dim, *HEADS)
+    q = constrain(torch.cat([q_nope, q_rope], dim=-1), *HEADS)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
     if impl in ("auto", "chunked") and s > _XLA_MAX_SEQ:
-        out = flash_attention_xla(q, k, v, True, 0, 0)
+        out = attend(flash_attention_xla, q, k, v, True, 0, 0)
     else:
-        out = ref.attention(q, k, v, causal=True)
+        out = attend(_materialized, q, k, v, True, 0, 0)
     return mla.o_proj(out.reshape(b, s, h * m.v_head_dim))
 
 
@@ -110,10 +125,17 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device,
 
 
 def _absorbed(mla: MLA, name: str, width: int) -> torch.Tensor:
-    """A latent up-projection's weight as (r, H, width) float32."""
+    """A latent up-projection's weight as (r, H, width) float32 (a DTensor
+    first laid out as its head view will be: see
+    ``attention.split_heads``)."""
     m = mla.cfg.mla
-    return getattr(mla, name).w.reshape(m.kv_lora_rank, mla.cfg.n_heads,
-                                        width).float()
+    w = getattr(mla, name).w
+    mesh = current_mesh()
+    if mesh is not None and _is_dtensor(w):
+        spec = spec_for(("latent", "heads", None),
+                        dims=(m.kv_lora_rank, mla.cfg.n_heads, width))
+        w = w.redistribute(mesh, placements_for(spec[:2], mesh))
+    return w.reshape(m.kv_lora_rank, mla.cfg.n_heads, width).float()
 
 
 def mla_decode(mla: MLA, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
@@ -131,9 +153,8 @@ def mla_decode(mla: MLA, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
     pos = lengths[:, None]
     q_nope, q_rope = project_q(mla, x, pos)                  # (B,1,H,*)
     c_new, kr_new = project_latent(mla, x, pos)              # (B,1,r) (B,1,dr)
-    rows = torch.arange(b, device=x.device)
-    c_cache[rows, lengths] = c_new[:, 0].to(c_cache.dtype)
-    kr_cache[rows, lengths] = kr_new[:, 0].to(kr_cache.dtype)
+    _scatter_slot(c_cache, c_new[:, 0], lengths)
+    _scatter_slot(kr_cache, kr_new[:, 0], lengths)
 
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(),
                          _absorbed(mla, "k_up", m.qk_nope_head_dim))
@@ -148,7 +169,7 @@ def mla_decode(mla: MLA, x: torch.Tensor, cache: Dict[str, torch.Tensor], *,
     probs = torch.softmax(logits.masked_fill(~valid, -math.inf), dim=-1)
     ctx = torch.einsum("bhs,bsr->bhr", probs, cf)
     out = torch.einsum("bhr,rhd->bhd", ctx, _absorbed(mla, "v_up", m.v_head_dim))
-    out = out.reshape(b, 1, cfg.n_heads * m.v_head_dim).to(x.dtype)
+    out = constrain(out, "batch", "heads", None).reshape(b, 1, cfg.n_heads * m.v_head_dim).to(x.dtype)
     return mla.o_proj(out)
 
 

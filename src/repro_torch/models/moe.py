@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import MLP, Linear, _normal
+from repro_torch.parallel.sharding import _is_dtensor, constrain, gathered
 
 CAPACITY_FACTOR = 1.25
 MOE_TOKEN_CHUNK = 65_536
@@ -49,8 +50,11 @@ class MoE(nn.Module):
         self.cfg = cfg
         d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.router = Linear(d, e, device=device, dtype=torch.float32,
-                             generator=generator)
+        self.router = Linear(d, e, axes=("embed_fsdp", None), device=device,
+                             dtype=torch.float32, generator=generator)
+        self.axes = {"up": ("experts", "embed_fsdp", "moe_ff"),
+                     "gate": ("experts", "embed_fsdp", "moe_ff"),
+                     "down": ("experts", "moe_ff", "embed_fsdp")}
         self.up = _normal((e, d, f), d ** -0.5, **kw)
         self.down = _normal((e, f, d), f ** -0.5, **kw)
         if cfg.act == "silu":
@@ -88,6 +92,11 @@ def moe_ffn(moe: MoE, x: torch.Tensor, *, impl: str = "dropping"
     (the aux terms are the chunks' means)."""
     b, s, d = x.shape
     t = b * s
+    if _is_dtensor(x):
+        raise NotImplementedError(
+            "moe_ffn under a mesh: the sort-based dispatch orders every "
+            "token of the batch at once, and DTensor has no sharded sort "
+            "(expert parallelism over the data axes is not ported)")
     if t > MOE_TOKEN_CHUNK:
         n = next((c for c in range(2, s + 1)
                   if s % c == 0 and t // c <= MOE_TOKEN_CHUNK), 1)
@@ -160,9 +169,12 @@ def _expert_mlp_dropping(moe: MoE, xs: torch.Tensor, sorted_e: torch.Tensor,
     dest = torch.where(pos < cap, sorted_e * cap + pos, e * cap)
     xg = xs.new_zeros((e * cap + 1, xs.shape[1]))
     xg[dest] = xs
-    xg = xg[:-1].reshape(e, cap, xs.shape[1])
-    h = _expert_act(moe, torch.bmm(xg, moe.up), lambda: torch.bmm(xg, moe.gate))
-    yg = torch.bmm(h, moe.down)                                       # (E,C,D)
+    xg = constrain(xg[:-1].reshape(e, cap, xs.shape[1]), "experts", None, None)
+    up, down = (gathered(getattr(moe, n), moe.axes[n]) for n in ("up", "down"))
+    h = _expert_act(moe, torch.bmm(xg, up),
+                    lambda: torch.bmm(xg, gathered(moe.gate, moe.axes["gate"])))
+    h = constrain(h, "experts", None, "moe_ff")
+    yg = torch.bmm(h, down)                                           # (E,C,D)
     ys = torch.cat([yg.reshape(e * cap, -1), yg.new_zeros((1, yg.shape[-1]))])
     return ys[dest]
 

@@ -23,6 +23,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import MLP, Linear, RMSNorm, apply_rope
+from repro_torch.parallel.sharding import constrain
 
 Cache = Dict[str, torch.Tensor]
 Aux = Dict[str, torch.Tensor]
@@ -75,8 +76,8 @@ class Block(nn.Module):
             d, kvd = cfg.d_model, cfg.n_kv_heads * cfg.resolved_head_dim
             self.ln_x = RMSNorm(d, cfg.norm_eps, device=device)
             self.cross_attn = attn_mod.CrossAttention(cfg, **kw)
-            self.k_proj = Linear(d, kvd, **kw)
-            self.v_proj = Linear(d, kvd, **kw)
+            self.k_proj = Linear(d, kvd, axes=attn_mod.KV_AXES, **kw)
+            self.v_proj = Linear(d, kvd, axes=attn_mod.KV_AXES, **kw)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if desc.kind == "moe":
             self.moe = moe_mod.MoE(cfg, **kw)
@@ -91,6 +92,14 @@ class Block(nn.Module):
                            causal=causal, enc_kv=enc_kv)[:2]
 
 
+def _res(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The residual stream x + y, in the layout the reference's stream
+    keeps from its embedding's constraint, ("batch", None, None): under a
+    mesh DTensor would otherwise keep a row-parallel projection's partial
+    sum in the stream and reduce-scatter it over the hidden dim."""
+    return constrain(x + y, "batch", None, None)
+
+
 def _cross(block: Block, x: torch.Tensor, enc_kv: EncKV,
            impl: str) -> torch.Tensor:
     """The residual stream after the block's cross-attention, if it has
@@ -100,7 +109,7 @@ def _cross(block: Block, x: torch.Tensor, enc_kv: EncKV,
     if enc_kv is None:
         raise ValueError(f"{block.cfg.name}: a cross block needs the "
                          "encoder memory (enc_kv)")
-    return x + block.cross_attn(block.ln_x(x), *enc_kv, impl=impl)
+    return _res(x, block.cross_attn(block.ln_x(x), *enc_kv, impl=impl))
 
 
 def _ffn(block: Block, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[Aux]]:
@@ -128,9 +137,9 @@ def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
     cache: Cache = {}
     if desc.kind == "mamba":
         if not collect_cache:
-            return x + block.mamba(h, impl=impl), None, None
+            return _res(x, block.mamba(h, impl=impl)), None, None
         y, (tail, hs) = block.mamba(h, return_state=True, impl=impl)
-        return x + y, None, {"conv": tail, "h": hs}
+        return _res(x, y), None, {"conv": tail, "h": hs}
     if block.cfg.attn_type == "mla":
         y = block.mla_attn(h, positions, impl=impl)
         if collect_cache:
@@ -151,9 +160,9 @@ def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
         else:
             ym = block.mamba(h, impl=impl)
         y = y + ym
-    x = _cross(block, x + y, enc_kv, impl)
+    x = _cross(block, _res(x, y), enc_kv, impl)
     y2, aux = _ffn(block, x)
-    return x + y2, aux, (cache or None)
+    return _res(x, y2), aux, (cache or None)
 
 
 def _fill_ring(kv: torch.Tensor, slots: int) -> torch.Tensor:
@@ -208,6 +217,34 @@ def _write_chunk(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+#: logical axes of each cache entry (the reference's ``CACHE_AXES``)
+CACHE_AXES = {
+    "k": ("batch", "cache_seq", "kv_heads", None),
+    "v": ("batch", "cache_seq", "kv_heads", None),
+    "c": ("batch", "cache_seq", None),
+    "k_rope": ("batch", "cache_seq", None),
+    "conv": ("batch", None, "ff"),
+    "h": ("batch", "ff", None),
+    "enc_out": ("batch", None, None),
+    "enc_k": ("batch", None, None, None),
+    "enc_v": ("batch", None, None, None),
+}
+
+
+def cache_axes(cache: List[Cache]) -> List[Dict[str, tuple]]:
+    """The logical axes of every tensor of a cache (one dict per layer, as
+    ``Model.zero_cache`` and ``Model.cache_spec`` give it)."""
+    return [{k: _axes_for(k, t.dim()) for k, t in layer.items()}
+            for layer in cache]
+
+
+def _axes_for(key: str, nd: int) -> tuple:
+    axes = CACHE_AXES.get(key, ())
+    if len(axes) < nd:                      # leading dims without a name
+        axes = (None,) * (nd - len(axes)) + tuple(axes)
+    return tuple(axes[-nd:]) if nd else ()
+
+
 def prefill_chunk_attention(attn: attn_mod.Attention, x: torch.Tensor,
                             cache: Dict[str, torch.Tensor], *,
                             lengths: torch.Tensor, window: int = 0,
@@ -241,7 +278,7 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
     desc = block.desc
     h = block.ln1(x)
     if desc.kind == "mamba":
-        return x + _mamba_chunk(block.mamba, h, cache, impl)
+        return _res(x, _mamba_chunk(block.mamba, h, cache, impl))
     if block.cfg.attn_type == "mla":
         y = mla_mod.mla_prefill_chunk(block.mla_attn, h, cache,
                                       lengths=lengths, write_chunk=_write_chunk)
@@ -250,8 +287,8 @@ def block_prefill_chunk(block: Block, x: torch.Tensor, cache: Cache, *,
                                     window=desc.window, impl=impl)
     if desc.kind == "hybrid":
         y = y + _mamba_chunk(block.mamba, h, cache, impl)
-    x = _cross(block, x + y, _cache_memory(block, cache), impl)
-    return x + _ffn(block, x)[0]
+    x = _cross(block, _res(x, y), _cache_memory(block, cache), impl)
+    return _res(x, _ffn(block, x)[0])
 
 
 def _cache_memory(block: Block, cache: Cache) -> EncKV:
@@ -281,7 +318,7 @@ def block_decode(block: Block, x: torch.Tensor, cache: Cache, *,
     desc = block.desc
     h = block.ln1(x)
     if desc.kind == "mamba":
-        return x + _mamba_step(block, h, cache, impl)
+        return _res(x, _mamba_step(block, h, cache, impl))
     if block.cfg.attn_type == "mla":
         y = mla_mod.mla_decode(block.mla_attn, h, cache, lengths=lengths)
     else:
@@ -290,8 +327,8 @@ def block_decode(block: Block, x: torch.Tensor, cache: Cache, *,
                                       impl=impl, kv_seq_shards=kv_seq_shards)
     if desc.kind == "hybrid":
         y = y + _mamba_step(block, h, cache, impl)
-    x = _cross(block, x + y, _cache_memory(block, cache), impl)
-    return x + _ffn(block, x)[0]
+    x = _cross(block, _res(x, y), _cache_memory(block, cache), impl)
+    return _res(x, _ffn(block, x)[0])
 
 
 def _mamba_step(block: Block, h: torch.Tensor, cache: Cache,
@@ -326,3 +363,31 @@ def block_cache(cfg: ModelConfig, desc: BlockDesc, batch: int, max_seq: int,
         cache.update(enc_k=torch.zeros(shape, **kw),
                      enc_v=torch.zeros(shape, **kw))
     return cache
+
+
+#: logical axes of each cache entry (the reference's ``CACHE_AXES``)
+CACHE_AXES = {
+    "k": ("batch", "cache_seq", "kv_heads", None),
+    "v": ("batch", "cache_seq", "kv_heads", None),
+    "c": ("batch", "cache_seq", None),
+    "k_rope": ("batch", "cache_seq", None),
+    "conv": ("batch", None, "ff"),
+    "h": ("batch", "ff", None),
+    "enc_out": ("batch", None, None),
+    "enc_k": ("batch", None, None, None),
+    "enc_v": ("batch", None, None, None),
+}
+
+
+def cache_axes(cache: List[Cache]) -> List[Dict[str, tuple]]:
+    """The logical axes of every tensor of a cache (one dict per layer, as
+    ``Model.zero_cache`` and ``Model.cache_spec`` give it)."""
+    return [{k: _axes_for(k, t.dim()) for k, t in layer.items()}
+            for layer in cache]
+
+
+def _axes_for(key: str, nd: int) -> tuple:
+    axes = CACHE_AXES.get(key, ())
+    if len(axes) < nd:                      # leading dims without a name
+        axes = (None,) * (nd - len(axes)) + tuple(axes)
+    return tuple(axes[-nd:]) if nd else ()

@@ -25,6 +25,12 @@ SSM state (B, Di, N); a hybrid layer holds ``k``, ``v``, ``conv`` and
 ``enc_v``, each (B, enc_len, KV, hd).  ``prefill_chunk`` and
 ``decode_step`` write into the cache they are given, in place, and return
 it.
+
+For the dry run (``launch.dryrun``) the model describes itself without
+allocating: ``param_axes`` (each parameter's logical axes: the reference's
+``ParamSpec.axes`` without its stacked ``layers`` axis, as the port keeps
+one tensor per layer), ``abstract_params``, ``cache_spec`` and
+``input_specs``, all meta tensors of the reference's shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ from repro_torch.core.device import Device, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Embedding, Linear, RMSNorm
+from repro_torch.parallel.sharding import (_is_dtensor, constrain, from_local,
+                                           gathered, local_like, local_offset)
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -53,7 +61,7 @@ class TiedHead(nn.Module):
     ``lm_head`` scope as the reference's does.  It holds no weights."""
 
     def forward(self, x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-        return x @ table.T
+        return x @ gathered(table, ("vocab", "embed_fsdp")).T
 
 
 class Frontend(nn.Module):
@@ -83,7 +91,8 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(tfm.Block(cfg, d, **kw) for d in self.descs)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=dev)
         self.lm_head = (TiedHead() if cfg.tie_embeddings
-                        else Linear(cfg.d_model, cfg.vocab_size, **kw))
+                        else Linear(cfg.d_model, cfg.vocab_size,
+                                    axes=("embed_fsdp", "vocab"), **kw))
         if cfg.is_encdec:
             enc = tfm.BlockDesc("dense", 0, cross=False)
             self.enc_layers = nn.ModuleList(
@@ -106,7 +115,7 @@ class Model(nn.Module):
             logits = self.lm_head(x, self.embed.table)
         else:
             logits = self.lm_head(x)
-        return logits.float()
+        return constrain(logits.float(), "batch", None, "vocab")
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
@@ -118,10 +127,11 @@ class Model(nn.Module):
         """Token embeddings, with a non-enc-dec frontend's frames prepended
         when given; and the number of frames prepended."""
         x = self.embed(self._tokens(tokens))
-        if frames is None or not hasattr(self, "frontend"):
-            return x, 0
-        frames = self._frames(frames)
-        return self.frontend(frames, x), frames.shape[1]
+        n_front = 0
+        if frames is not None and hasattr(self, "frontend"):
+            frames = self._frames(frames)
+            x, n_front = self.frontend(frames, x), frames.shape[1]
+        return constrain(x, "batch", None, None), n_front
 
     def _enc_out(self, frames, impl: str) -> Optional[torch.Tensor]:
         if not self.cfg.is_encdec:
@@ -146,7 +156,7 @@ class Model(nn.Module):
     def encode(self, frames, *, impl: str = "auto") -> torch.Tensor:
         """frames (B,F,d_model) -> the encoder output (B,F,d_model): the
         encoder's dense blocks run non-causally, then ``enc_norm``."""
-        x = self._frames(frames)
+        x = constrain(self._frames(frames), "batch", None, None)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for layer in self.enc_layers:
             x, _ = layer(x, positions, impl=impl, causal=False)
@@ -203,8 +213,8 @@ class Model(nn.Module):
         labels = self._tokens(batch["labels"])
         mask = (labels >= 0).float()
         safe = labels.clamp(min=0)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+        lse = _logsumexp_last(logits)
+        ll = _pick_last(logits, safe)
         ce = ((lse - ll) * mask).sum() / mask.sum().clamp(min=1.0)
         aux = {k: torch.as_tensor(v, dtype=torch.float32, device=logits.device)
                for k, v in aux.items()}
@@ -254,11 +264,72 @@ class Model(nn.Module):
         tokens = self._tokens(tokens)
         if tokens.dim() == 1:
             tokens = tokens[:, None]
-        x = self.embed(tokens)
+        x = constrain(self.embed(tokens), "batch", None, None)
         for layer, c in zip(self.layers, cache):
             x = tfm.block_decode(layer, x, c, lengths=lengths, impl=impl,
                                  kv_seq_shards=kv_seq_shards)
         return self._head(x)[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # abstract description (dry run)
+    # ------------------------------------------------------------------
+
+    def param_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """{parameter name: its logical axes}, from the module that holds
+        it (``axes``)."""
+        out = {}
+        for name, _ in self.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            out[name] = self.get_submodule(owner).axes[leaf]
+        return out
+
+    def abstract_params(self) -> Dict[str, torch.Tensor]:
+        """{parameter name: a meta tensor of its shape and dtype}."""
+        return {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                for n, p in self.named_parameters()}
+
+    def cache_spec(self, batch: int, max_seq: int, enc_len: int = 0,
+                   use_ring: bool = True) -> Cache:
+        """``zero_cache``'s layout as meta tensors."""
+        return [tfm.block_cache(self.cfg, d, batch, max_seq, device="meta",
+                                dtype=self.dtype, use_ring=use_ring,
+                                enc_len=enc_len)
+                for d in self.descs]
+
+    def input_specs(self, shape) -> Dict[str, Any]:
+        """Meta tensors standing in for one step's inputs at an assigned
+        shape (``configs.SHAPES``), as the reference's: ``{"batch":
+        {tokens[, labels][, frames]}}`` for train and prefill, ``{"cache",
+        "tokens", "lengths"}`` for decode (one token against a cache of
+        ``seq_len``).  Token ids and lengths are int32."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32, dt = torch.int32, self.dtype
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        def text_batch(with_labels: bool):
+            out = {}
+            s_text = s
+            if cfg.is_encdec:
+                enc_len = min(s, cfg.n_frontend_tokens or s)
+                out["frames"] = meta((b, enc_len, cfg.d_model), dt)
+            elif cfg.frontend != "none":
+                s_text = max(s - cfg.n_frontend_tokens, 1)
+                out["frames"] = meta((b, cfg.n_frontend_tokens, cfg.d_model), dt)
+            out["tokens"] = meta((b, s_text), i32)
+            if with_labels:
+                out["labels"] = meta((b, s_text), i32)
+            return out
+
+        if shape.kind == "train":
+            return {"batch": text_batch(True)}
+        if shape.kind == "prefill":
+            return {"batch": text_batch(False)}
+        enc_len = min(s, cfg.n_frontend_tokens or s) if cfg.is_encdec else 0
+        return {"cache": self.cache_spec(b, s, enc_len),
+                "tokens": meta((b,), i32), "lengths": meta((b,), i32)}
 
     # ------------------------------------------------------------------
     # caches
@@ -289,7 +360,7 @@ class Model(nn.Module):
         chunk's last position) (B,V), cache updated in place).  last_pos
         (B,) indexes within the chunk — used when the engine pads chunks to
         size buckets."""
-        x = self.embed(self._tokens(tokens))
+        x = constrain(self.embed(self._tokens(tokens)), "batch", None, None)
         for layer, c in zip(self.layers, cache):
             x = tfm.block_prefill_chunk(layer, x, c, lengths=lengths,
                                         impl=impl)
@@ -299,6 +370,58 @@ class Model(nn.Module):
             idx = last_pos.to(x.device).long()[:, None, None]
             xl = torch.take_along_dim(x, idx, dim=1)
         return self._head(xl)[:, 0], cache
+
+
+def _shard_rows(x: torch.Tensor, idx=None):
+    """For a DTensor whose last dim may be sharded: its rows' placements
+    (the last dim's shards replicated), its local shard, the offset of the
+    local last dim, and the mesh dims sharding the last dim; and ``idx``'s
+    shard laid out as the rows."""
+    from torch.distributed.tensor import Replicate
+    mesh, last = x.device_mesh, x.dim() - 1
+    rows = [p if p.is_shard() and p.dim < last else Replicate()
+            for p in x.placements]
+    cut = [i for i, p in enumerate(x.placements) if p.is_shard(last)]
+    li = None if idx is None else local_like(idx, mesh, rows)
+    return rows, x.to_local(), local_offset(x)[-1], cut, li
+
+
+def _reduce(t: torch.Tensor, x, rows, cut, op: str) -> torch.Tensor:
+    """``t`` (a function of this device's shard of ``x``'s last dim)
+    reduced by ``op`` over the mesh dims in ``cut``, as a DTensor laid out
+    as ``x``'s rows."""
+    from torch.distributed.tensor import Partial
+    src = [Partial(op) if i in cut else p for i, p in enumerate(rows)]
+    return from_local(t, x.device_mesh, src, tuple(x.shape[:-1])
+                      ).redistribute(x.device_mesh, rows)
+
+
+def _logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)``; on a DTensor, on each device's shard of
+    the last dim (the vocab), the max and the sum reduced over the mesh
+    dims that shard it, as vocab-parallel cross-entropy does."""
+    if not _is_dtensor(x):
+        return torch.logsumexp(x, dim=-1)
+    rows, local, _, cut, _ = _shard_rows(x)
+    m = _reduce(local.detach().amax(-1), x, rows, cut, "max")
+    s = _reduce(torch.exp(local - m.to_local()[..., None]).sum(-1), x, rows,
+                cut, "sum")
+    return m + torch.log(s)
+
+
+def _pick_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` row by row (``torch.gather`` on the last dim).  On a
+    DTensor each device picks from its own shard of the last dim (the
+    vocab), zero where the index is not in it, and the picks are summed
+    over the mesh dims that shard it, as vocab-parallel cross-entropy
+    does; DTensor's own gather would replicate the logits."""
+    if not _is_dtensor(x):
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+    rows, local, off, cut, li = _shard_rows(x, idx)
+    li = li.long() - off
+    ok = (li >= 0) & (li < local.shape[-1])
+    picked = torch.gather(local, -1, li.clamp(0, local.shape[-1] - 1)[..., None])
+    return _reduce(torch.where(ok, picked[..., 0], 0.0), x, rows, cut, "sum")
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig

@@ -1,5 +1,5 @@
-"""Distributed-training substrate: int8 gradient compression (the sharding
-rules and collectives come with the parallel slice)."""
+"""Distributed substrate: logical-axis sharding over a ``DeviceMesh``
+(``sharding``), int8 gradient compression, and the roofline constants."""
 from repro_torch.parallel.compression import (compress_roundtrip,
                                               dequantize_int8,
                                               make_grad_compression,

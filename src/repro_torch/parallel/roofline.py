@@ -1,22 +1,25 @@
-"""Roofline constants of the card, and the useful-compute baseline.
+"""Roofline constants of the card, the dry run's roofline terms, and the
+useful-compute baseline.
 
-Counterpart of the part of ``repro.parallel.roofline`` that the
-profile-then-simulate loop reads.  The reference's constants are a TPU
-v5e's; here each card is keyed by its hardware tag, the lower-cased name
+Counterpart of ``repro.parallel.roofline``.  The reference's constants are a
+TPU v5e's; here each card is keyed by its hardware tag, the lower-cased name
 ``torch.cuda.get_device_name()`` reports without its vendor word
 (``"NVIDIA H100 80GB HBM3"`` -> ``"h100-80gb-hbm3"``).  The H100 figures
 are NVIDIA's data-sheet peaks for the SXM part, dense, at its 700 W limit.
 
-The reference's ``Roofline``, ``analyze``, ``analyze_text`` and
-``collective_bytes`` parse XLA's HLO and have no counterpart: FLOPs come
-from ``torch.utils.flop_counter`` instead (``core.backends.h100_analytical``).
-Interconnect constants come with the multi-GPU slice; until then nothing
-here models a collective.
+    compute term    = FLOPs_per_device / peak FLOP/s (bf16)
+    memory term     = bytes_per_device / HBM bw
+    collective term = collective_bytes_per_device / NVLink bw (one direction)
+
+The reference's ``analyze``, ``analyze_text`` and ``collective_bytes``
+parse XLA's HLO and have no counterpart: the dry run counts FLOPs, bytes and
+collective bytes on each device's shards as the step runs
+(``launch.dryrun.StepMeter``).
 """
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
@@ -38,6 +41,53 @@ PEAKS: Dict[str, Peaks] = {
                        torch.float32: 67e12},
                 hbm_bw=3.35e12),
 }
+
+
+#: NVLink 4 on the H100 SXM: 900 GB/s per GPU both ways together, 450 GB/s
+#: each way.  NVIDIA's data-sheet figures, not measured: the card this port
+#: is measured on is a single one.
+NVLINK_BIDIR_BW = 900e9
+NVLINK_BW = 450e9            # bytes/s a GPU sends (or receives) over NVLink
+
+
+@dataclass
+class Roofline:
+    """Per-device roofline terms of one dry-run cell, priced at the H100's
+    data-sheet peaks (``PEAKS[H100]``, bf16) and NVLink figure."""
+    flops: float                 # per device
+    hbm_bytes: float             # per device
+    coll_bytes: float            # per device
+    coll_by_kind: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / PEAKS[H100].peak_flops(torch.bfloat16)
+
+    @property
+    def memory_s(self) -> float:
+        return self.hbm_bytes / PEAKS[H100].hbm_bw
+
+    @property
+    def collective_s(self) -> float:
+        return self.coll_bytes / NVLINK_BW
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    def as_dict(self) -> dict:
+        return {
+            "flops_per_chip": self.flops,
+            "hbm_bytes_per_chip": self.hbm_bytes,
+            "collective_bytes_per_chip": self.coll_bytes,
+            "collective_by_kind": dict(self.coll_by_kind),
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+        }
 
 
 def hardware_tag(device_name: str) -> str:

@@ -16,6 +16,10 @@ moments, where the reference keeps float32.
 Each optimizer exposes:
   init(params)                     -> opt_state
   update(grads, state, params, lr) -> (params, state), both updated in place
+  state_axes(param_axes)           -> the state's logical axes (sharding)
+
+On DTensors (the dry run) the state is made ``zeros_like`` the parameters,
+so it keeps their sharding, and an update is not sliced.
 """
 from __future__ import annotations
 
@@ -52,7 +56,11 @@ def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
 
 
 def _slices(*ts: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
-    """Matching flat slices of same-shaped contiguous tensors."""
+    """Matching flat slices of same-shaped contiguous tensors; DTensors
+    whole, as a flat view of a sharded tensor is not one."""
+    if any(type(t) not in (torch.Tensor, torch.nn.Parameter) for t in ts):
+        yield ts
+        return
     flat = [t.view(-1) for t in ts]
     for i in range(0, flat[0].numel(), _SLICE):
         yield tuple(f[i:i + _SLICE] for f in flat)
@@ -76,10 +84,13 @@ class AdamW:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return torch.zeros_like(p, dtype=torch.float32)
         return {"m": {n: zeros(p) for n, p in params.items()},
                 "v": {n: zeros(p) for n, p in params.items()},
                 "count": 0}
+
+    def state_axes(self, param_axes: Mapping[str, tuple]) -> dict:
+        return {"m": dict(param_axes), "v": dict(param_axes), "count": ()}
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,
@@ -131,6 +142,18 @@ class Adafactor:
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **kw)}
             return {"v": torch.zeros(p.shape, **kw)}
         return {"f": {n: leaf(p) for n, p in params.items()}, "count": 0}
+
+    def state_axes(self, param_axes: Mapping[str, tuple]) -> dict:
+        """The axes of ``init``'s state.  The reference's stacked 1-D leaves
+        (a norm scale of (layers, d)) are factored into ``vr`` (layers,) and
+        ``vc`` (d,); the port's per-layer (d,) leaf keeps one ``v`` (d,)."""
+        def leaf(ax):
+            ax = tuple(ax)
+            if len(ax) >= 2:
+                return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+            return {"v": ax}
+        return {"f": {n: leaf(ax) for n, ax in param_axes.items()},
+                "count": ()}
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,

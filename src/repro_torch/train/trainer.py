@@ -17,8 +17,13 @@ returns ``train_step(state, batch) -> (state, metrics)``:
 
 The state is ``{"step": int, "params": {name: parameter}, "opt": ...}``;
 its parameters are the model's own tensors, so the step updates the model
-in place.  ``abstract_train_state`` and ``train_state_axes`` wait for the
-parallel slice.
+in place.  ``abstract_train_state`` gives its layout as meta tensors (the
+step and the optimizer's count as int32 scalars, as the reference's) and
+``train_state_axes`` the logical axes to shard it by (``launch.dryrun``).
+
+On DTensors (the dry run) a microbatch takes the same rows of every
+device's shard of the batch, so it stays sharded over the data axes and
+moves nothing, and the accumulators are ``zeros_like`` the parameters.
 """
 from __future__ import annotations
 
@@ -39,13 +44,54 @@ def init_train_state(model: Model, optimizer=None) -> dict:
     return {"step": 0, "params": params, "opt": opt.init(params)}
 
 
+def abstract_train_state(model: Model, optimizer=None) -> dict:
+    """The train state's layout as meta tensors, allocating nothing."""
+    opt = optimizer or make_optimizer(model.cfg.optimizer)
+    params = model.abstract_params()
+    state = opt.init(params)
+    scalar = torch.empty((), dtype=torch.int32, device="meta")
+    state["count"] = scalar
+    return {"step": scalar.clone(), "params": params, "opt": state}
+
+
+def train_state_axes(model: Model, optimizer=None) -> dict:
+    opt = optimizer or make_optimizer(model.cfg.optimizer)
+    param_axes = model.param_axes()
+    return {"step": (), "params": param_axes,
+            "opt": opt.state_axes(param_axes)}
+
+
+def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a batch tensor: rows [i*size,
+    (i+1)*size); of a DTensor, those rows of each device's shard."""
+    if type(x) is torch.Tensor:
+        size = len(x) // n
+        return x[i * size:(i + 1) * size]
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    size = len(local) // n
+    return DTensor.from_local(local[i * size:(i + 1) * size], x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=(len(x) // n,) + tuple(x.shape[1:]),
+                              stride=local.stride())
+
+
+def _each(body: Callable, items: list) -> list:
+    return [body(x) for x in items]
+
+
 def make_train_step(model: Model, *, microbatches: int = 1,
                     learning_rate: float = 3e-4, max_grad_norm: float = 1.0,
                     impl: str = "auto", optimizer=None,
-                    grad_transform: Optional[Callable[[Tree], Tree]] = None):
+                    grad_transform: Optional[Callable[[Tree], Tree]] = None,
+                    scan: Callable[[Callable, list], list] = _each):
     """The batch holds numpy arrays or tensors, ``tokens`` and ``labels``
     (B,S) with B divisible by ``microbatches``; they are moved to
-    ``model.device``."""
+    ``model.device``.  ``scan(body, microbatches)`` runs the microbatch
+    loop, the reference's ``lax.scan``: by default ``body`` on each in
+    order; the dry run's runs it once and counts it once per microbatch,
+    as the reference's cost analysis counts a scan's body by its trip
+    count (``launch.dryrun.StepMeter.scan``)."""
     opt = optimizer or make_optimizer(model.cfg.optimizer)
 
     def loss_and_grads(params: Tree, mb: Mapping[str, torch.Tensor]):
@@ -64,19 +110,20 @@ def make_train_step(model: Model, *, microbatches: int = 1,
             if rows % microbatches:
                 raise ValueError(f"a batch of {rows} rows does not split into "
                                  f"{microbatches} microbatches")
-            size = rows // microbatches
-            mbs = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                   for i in range(microbatches)]
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            mbs = [{k: _microbatch(v, i, microbatches)
+                    for k, v in batch.items()} for i in range(microbatches)]
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in params.items()}
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            stacked: Dict[str, list] = {}
-            for mb in mbs:
+            def accumulate(mb):
                 mb_loss, mb_metrics, g = loss_and_grads(params, mb)
                 for name, gi in g.items():
                     grads[name].add_(gi)
-                del g
-                loss = loss + mb_loss.float()
+                return mb_loss.float(), mb_metrics
+
+            loss = torch.zeros((), dtype=torch.float32, device=model.device)
+            stacked: Dict[str, list] = {}
+            for mb_loss, mb_metrics in scan(accumulate, mbs):
+                loss = loss + mb_loss
                 for k, m in mb_metrics.items():
                     stacked.setdefault(k, []).append(m)
             for g in grads.values():

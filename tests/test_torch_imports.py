@@ -21,6 +21,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import torch.distributed as dist
+assert "repro_torch.launch.dryrun" in sys.modules
+if dist.is_initialized():
+    print("a process group was started by an import")
+    sys.exit(1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 mains = sorted(n for n in names if n.endswith(".__main__"))
@@ -41,8 +46,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     # latency_model,journal,supervisor,profiler,plan}, parallel.roofline,
     # sim, workload, api) and the configuration-search surface (_cli,
     # profile, sweep, optimize, each CLI's __main__), and the MLA, MoE and
-    # hybrid families (models.{mla,moe} and three configs) included
-    assert int(n_modules) >= 79 and bad.strip() == "[]"
+    # hybrid families (models.{mla,moe} and three configs), and the launch
+    # package (launch, launch.mesh, launch.dryrun) with parallel.sharding
+    # included
+    assert int(n_modules) >= 83 and bad.strip() == "[]"
     assert mains.split(",") == [f"repro_torch.{m}.__main__"
                                 for m in ("optimize", "profile", "sweep")]
 

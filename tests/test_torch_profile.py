@@ -281,8 +281,14 @@ def test_roofline_backend_refuses_tensor_parallelism():
     # a decode step of 8 rows reads every weight once: bytes bound
     assert be.predict_points([("decode", 1, 8, 2048)])[0] > \
         cfg.active_param_count() * 2 / 3.35e12
-    with pytest.raises(NotImplementedError, match="interconnect"):
-        RooflineBackend(cfg, sched_config=sched, max_seq=2048, tp=2)
+    # tp > 1 was refused until the NVLink figure came; it now prices the
+    # activations' ring all-reduce per layer on it
+    tp2 = RooflineBackend(cfg, sched_config=sched, max_seq=2048, tp=2)
+    toks = 256
+    coll = cfg.n_layers * toks * cfg.d_model * 2 * 1.0 / 450e9
+    assert tp2.predict_points([("prefill", toks, 1, 2048)])[0] >= coll
+    assert tp2.predict_points([("decode", 1, 8, 2048)])[0] < \
+        be.predict_points([("decode", 1, 8, 2048)])[0]
 
 
 def test_profiler_defaults_need_a_card():
