@@ -228,6 +228,40 @@ meshes (the dry run), and checks them, one line per phase:
              DB and the roofline backend's makespans of phase 12's score
              trace at tp 1, 2, 4 and 8, a model on NVLink's data-sheet
              figure.  The phase is held to 180 s.
+17. train families — ``[17 hybrid]``: hymba-1.5b at full width and depth
+             (32 layers, bf16) takes 3 AdamW steps, then 3 Adafactor steps
+             on a fresh model and state, each of 4 microbatches of 1 x 2048
+             tokens with remat, through the flash forward and backward at
+             window 1024 and the plain chunked scan (the scan kernel has no
+             backward, nor has the reference's): every loss and grad norm
+             finite, 2 x 32 x 4 forward and 32 x 4 backward launches a
+             step, no scan launch; one microbatch's bf16 gradients through
+             the kernels are held against a float32 copy of the same
+             weights: every parameter tensor's relative L2 error within 2x
+             that of the plain attention's bf16 gradients (+ 1e-5), as
+             FlashAttention's tests hold a kernel (random 32-layer hybrid
+             gradients in bf16 lie ~40 % from float32 by any attention, so
+             the kernel-vs-plain cosine is printed); step time,
+             tokens/s, the share of the bf16 peak and peak memory; then
+             the Adafactor state is saved by
+             ``AsyncCheckpointer`` under build/chip/phase17, restored into a
+             fresh model, and one more step from each gives the same loss
+             bit for bit (bytes and seconds printed; the checkpoint is
+             deleted).  ``[17 dense]``: yi-9b at full width and depth (48
+             layers, 8.8 B parameters) under Adafactor on the reference's
+             stacked leaves, 3 steps of 4 x 1024 tokens in one microbatch,
+             the same checks but the checkpoint, except that its gradients
+             are held to cosine >= 0.99 against the plain attention's (a
+             float32 copy, 70 GB with its gradients, would not fit beside
+             it), peak memory beside the card's.  ``[17 examples]``: ``examples/torch_quickstart.py``,
+             ``torch_serve_demo.py``, ``torch_trace_sweep_demo.py`` and
+             ``torch_train_demo.py --steps 30`` as child processes on the
+             card, side by side: each exits 0 and prints its summary
+             lines.  The phase is held to 240 s.  Phase 3 also holds and
+             times the flash forward and backward at the two train shapes
+             (hymba's B 1, S 2048, 25/5 heads, D 64, window 1024, where
+             the window cuts keys, against SDPA with a boolean window mask;
+             yi-9b's B 4, S 1024, 32/4 heads, D 128, causal).
 A JSON line then lists every kernel with its launches on the main paths,
 its largest error against its plain version, and its times.
 ``python3 chip_smoke.py --profile-simulate`` runs phase 12 alone,
@@ -288,6 +322,7 @@ from repro_torch.serving.scheduler import IterationPlan  # noqa: E402
 from repro_torch.sim import metrics as M  # noqa: E402
 from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
                                init_train_state, make_optimizer, make_train_step)
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.workload import sharegpt_like, synthetic  # noqa: E402
 
 #: H100 SXM data-sheet peaks (dense)
@@ -330,6 +365,29 @@ MEASURE_POINTS = [(1, 512), (1, 2048), (8, 512), (8, 2048)]   # (reqs, ctx)
 PREFILL_POINT = (256, 1, 2048)                                 # (toks, reqs, ctx)
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
 TRAIN_STEPS, MICROBATCHES, LEARNING_RATE = 6, 2, 3e-4
+#: phase 17: (microbatches, rows a microbatch, tokens a row, steps) of the
+#: hybrid (under AdamW, then Adafactor) and of the dense model (Adafactor)
+TRAIN_HYBRID, TRAIN_DENSE = "hymba-1.5b", "yi-9b"
+HYBRID_RUN, DENSE_RUN = (4, 1, 2048, 3), (1, 4, 1024, 3)
+PHASE17_LIMIT_S = 240.0
+#: how much larger than the plain attention's a gradient's relative error
+#: to float32 may be through the kernels (FlashAttention's tests allow 2),
+#: and the error below which two paths are not told apart (float32's
+#: rounding over a product's terms; the plain path's own in a float32 model)
+GRAD_ERR_MARGIN, GRAD_ERR_FLOOR = 2.0, 1e-5
+PHASE17_DIR = Path(__file__).resolve().parent / "build" / "chip" / "phase17"
+#: the example counterparts phase 17 runs on the card: (script, arguments,
+#: lines its summary must print)
+EXAMPLES = [("torch_quickstart.py", [], ["traced yi-smoke: ", "runnable set: ",
+                                          "profiled on ", "db: "]),
+            ("torch_serve_demo.py", [], ["yi-smoke (kernel, cuda", "  ttft: p50=",
+                                          "  tpot: p50="]),
+            ("torch_trace_sweep_demo.py", [],
+             ["profiled llama3-8b on ", "trace under load warps and shapes:",
+              "TTFT strictly improves"]),
+            ("torch_train_demo.py", ["--steps", "30"],
+             ["step    0 loss=", "final loss=", "restored checkpoint @ step 30",
+              "resumed loss="])]
 MAMBA = "falcon-mamba-7b"
 GRANITE = "granite-20b"
 GRANITE_POINT = (8, 2048)                                      # (reqs, ctx)
@@ -678,14 +736,26 @@ def _flash_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
                                       device, "flash_")
         res["plain_ms"] = _time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, **kw),
                                    device)
-        res["library_ms"] = res["library_device_ms"] = None
-        if not window or window >= sk:      # SDPA has no window; none cut here
-            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            res["library_ms"] = _time_ms(
-                lambda: _sdpa(qh, kh, vh, is_causal=causal), device)
-            res["library_device_ms"] = _device_ms(
-                lambda: _sdpa(qh, kh, vh, is_causal=causal), device)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        mask = _sdpa_masks(sq, sk, causal, window, device)
+        res["library_ms"] = _time_ms(lambda: _sdpa(qh, kh, vh, **mask), device)
+        res["library_device_ms"] = _device_ms(lambda: _sdpa(qh, kh, vh, **mask),
+                                              device)
     return res
+
+
+def _sdpa_masks(sq: int, sk: int, causal: bool, window: int, device) -> dict:
+    """SDPA's arguments for the kernel's masks: ``is_causal``, or where the
+    window cuts keys a boolean mask of the pairs left (SDPA has no window
+    of its own), so that the yardstick computes the same function."""
+    if not window or window >= sk:
+        return {"is_causal": causal}
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = kpos > qpos - window
+    if causal:
+        mask &= kpos <= qpos
+    return {"attn_mask": mask}
 
 
 def _pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -733,7 +803,7 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
         res["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, out, lse, do, **kw), device)
         leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
-        o = _sdpa(*leaves, is_causal=causal)
+        o = _sdpa(*leaves, **_sdpa_masks(sq, sk, causal, window, device))
         doh = do.transpose(1, 2)
         res["library_ms"] = _time_ms(lambda: torch.autograd.grad(
             o, leaves, doh, retain_graph=True), device)
@@ -743,14 +813,15 @@ def _flash_bwd_case(rng, b, sq, sk, h, kv, d, causal, window, dtype, device,
 
 
 def phase_kernels(cfg, device, gqa_cfg=None, family_cfgs=(),
-                  flash_shapes=()) -> dict:
+                  flash_shapes=(), train_shapes=()) -> dict:
     """Each kernel against its plain version; returns, per kernel, the
     largest error over all cases and the main path's times.  Decode attention
     is also timed at ``gqa_cfg``'s serving shape (default granite-20b: a GQA
     group of 48, run as two slices of the group) and at the serving shape
     of each attention config of ``family_cfgs``; the flash forward also at
     the prefill shape of each of them with a sliding window, and at each of
-    ``flash_shapes`` (``frontend_flash_shapes``)."""
+    ``flash_shapes`` (``frontend_flash_shapes``); the flash forward and
+    backward at each of ``train_shapes`` (``train_flash_shapes``)."""
     gqa_cfg = gqa_cfg or get_config(GRANITE)
     rng = np.random.default_rng(0)
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -819,6 +890,20 @@ def phase_kernels(cfg, device, gqa_cfg=None, family_cfgs=(),
                           True)
         errs["flash_attention_fwd"].append(res)
         main["flash_attention_fwd"]["timed"][label] = res
+    main["flash_attention_bwd"]["timed"] = {}
+    for label, tb, ts, th, tkv, td, twin in train_shapes:
+        for name, case in (("flash_attention_fwd", _flash_case),
+                           ("flash_attention_bwd", _flash_bwd_case)):
+            timed = main[name]["timed"]
+            timed.setdefault(f"B=1 S={PREFILL_LEN} {cfg.n_heads}/{kv} heads D={hd}"
+                             if name == "flash_attention_fwd" else
+                             f"B={TRAIN_BATCH // MICROBATCHES} S={TRAIN_SEQ} "
+                             f"{cfg.n_heads}/{kv} heads D={hd}",
+                             {k: v for k, v in main[name].items() if k != "timed"})
+            res = case(rng, tb, ts, ts, th, tkv, td, True, twin, bf16, device,
+                       True)
+            errs[name].append(res)
+            timed[label] = res
     errs["flash_attention_fwd"].append(_flash_case(
         rng, 1, PREFILL_LEN, PREFILL_LEN, cfg.n_heads, kv, hd, True, WINDOW,
         bf16, device, False))
@@ -853,6 +938,20 @@ def phase_kernels(cfg, device, gqa_cfg=None, family_cfgs=(),
                   f"{r['plain_ms']:.4f} ms, library {library}, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}){reread}")
     return main
+
+
+def train_flash_shapes(hybrid, dense, hybrid_run=HYBRID_RUN,
+                       dense_run=DENSE_RUN) -> list:
+    """Phase 17's flash shapes, (label, B, S, H, KV, D, window): a
+    microbatch of the hybrid's windowed layers and of the dense model."""
+    out = []
+    for c, (_, rows, seq, _) in ((hybrid, hybrid_run), (dense, dense_run)):
+        win = c.sliding_window if 0 < c.sliding_window < seq else 0
+        out.append((f"{c.name} train B={rows} S={seq} {c.n_heads}/{c.n_kv_heads}"
+                    f" heads D={c.resolved_head_dim}"
+                    + (f" window {win}" if win else " causal"),
+                    rows, seq, c.n_heads, c.n_kv_heads, c.resolved_head_dim, win))
+    return out
 
 
 def _dev(res, prefix: str = "") -> str:
@@ -1153,70 +1252,15 @@ def phase_train(cfg, device, *, seq: int = TRAIN_SEQ,
     plain attention's.  ``seq`` and ``steps`` let the CPU tests run it
     small."""
     tcfg = cfg.with_overrides(n_layers=TRAIN_LAYERS)
-    cuda = device.type == "cuda"
-    model = Model(tcfg, device=device,
-                  generator=torch.Generator(device=device).manual_seed(0))
-    state = init_train_state(model, make_optimizer(tcfg.optimizer))
-    step_fn = make_train_step(model, microbatches=MICROBATCHES,
-                              learning_rate=LEARNING_RATE, impl="kernel")
-    stream = TokenStream(DataConfig(tcfg.vocab_size, TRAIN_BATCH, seq))
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
-    losses, gnorms, times = [], [], []
-    _zero_counts()
-    for i in range(steps):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, stream.batch_at(i))
-        losses.append(float(metrics["loss"]))        # waits for the step
-        gnorms.append(float(metrics["grad_norm"]))
-        times.append(time.perf_counter() - t0)
-    decode, fwd, bwd, scan = _counts()
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    calls = TRAIN_LAYERS * MICROBATCHES * steps
-    # remat: each layer's forward runs again inside its backward
-    expect_bwd, expect_fwd = (calls, 2 * calls) if cuda else (0, 0)
-    _require(bwd == expect_bwd and fwd == expect_fwd and decode == scan == 0,
-             f"flash backward calls {bwd} == {expect_bwd} (layers x microbatches "
-             f"x steps), forward launches {fwd} == {expect_fwd} (twice that: "
-             f"remat), decode {decode} and scan {scan} == 0")
-    _require(all(np.isfinite(losses + gnorms)),
-             f"every loss and grad norm is finite ({losses}, {gnorms})")
-
-    tokens = TRAIN_BATCH * seq
-    n_params = sum(p.numel() for p in model.parameters())
-    n_layer_params = sum(p.numel() for p in model.layers.parameters())
-    flops = 6 * n_params * tokens + 2 * n_layer_params * tokens
-    step_s = float(np.median(times[1:])) if len(times) > 1 else times[0]
-    card = _card(device)
-    print(f"[5b train] {tcfg.name} at full width, cut to {TRAIN_LAYERS} of "
-          f"{cfg.n_layers} layers (the only cut), {n_params / 1e9:.3f} B "
-          f"parameters, {tcfg.dtype}, AdamW, remat, {steps} steps of "
-          f"{TRAIN_BATCH} x {seq} tokens in {MICROBATCHES} microbatches; {card}")
-    print("  loss " + " ".join(f"{x:.4f}" for x in losses))
-    print("  grad_norm " + " ".join(f"{x:.4f}" for x in gnorms))
-    print(f"  step {step_s:.4f} s (median after the first, host clock; first "
-          f"{times[0]:.3f} s), {tokens / step_s:.0f} tokens/s, "
-          f"{flops / step_s / PEAK_FLOPS[torch.bfloat16] * 100:.2f} % of the "
-          f"989 TFLOP/s bf16 peak (6 P T + 2 P_layers T), peak memory "
-          f"{peak / 2**30:.2f} GiB; flash launches forward {fwd}, backward {bwd}; "
-          f"{card}")
-
-    mb = {k: v[:TRAIN_BATCH // MICROBATCHES]
-          for k, v in stream.batch_at(steps).items()}
-    params = list(model.parameters())
-    gk = torch.autograd.grad(model.loss(mb, impl="kernel")[0], params)
-    gx = torch.autograd.grad(model.loss(mb, impl="xla")[0], params)
-    cos = [float(F.cosine_similarity(a.float().flatten(), b.float().flatten(),
-                                     dim=0)) for a, b in zip(gk, gx)]
-    _require(min(cos) >= 0.99, f"gradient cosine kernel vs plain >= 0.99 for "
-             f"every parameter tensor (min {min(cos):.5f})")
-    print(f"  one microbatch's gradients, kernel vs plain attention: min cosine "
-          f"{min(cos):.6f} over {len(cos)} tensors")
-    out = {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
-           "first_step_s": times[0], "tokens_per_s": tokens / step_s,
-           "peak_bytes": peak, "flash_fwd_launches": fwd,
-           "flash_bwd_launches": bwd, "min_cosine": min(cos)}
-    del model, state, step_fn, gk, gx
+    run = (MICROBATCHES, TRAIN_BATCH // MICROBATCHES, seq, steps)
+    out, model, state, step_fn, stream = _train_family(
+        tcfg, device, tcfg.optimizer, run, "5b train",
+        depth=f"cut to {TRAIN_LAYERS} of {cfg.n_layers} layers (the only cut)")
+    del state, step_fn
+    _release(device)
+    mb = {k: v[:run[1]] for k, v in stream.batch_at(steps).items()}
+    out.update(_kernel_vs_plain_grads(model, mb, tcfg.name))
+    del model
     _release(device)
     return out
 
@@ -2923,11 +2967,288 @@ def phase16(device, *, groups=None, workdir: Path = None) -> dict:
             "flash_launches": mesh["flash_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training across the families
+# ---------------------------------------------------------------------------
+
+def _train_family(cfg, device, opt: str, run: tuple, tag: str, seed: int = 0,
+                  depth: str = "") -> tuple:
+    """``run`` = (microbatches, rows, tokens a row, steps) of ``cfg`` under
+    optimizer ``opt`` from a fresh model (weights from ``seed``) through
+    the kernel backend with remat: the launch counts of those steps, finite
+    losses and grad norms, and the step's time, rate and peak memory,
+    printed under ``[tag]`` with ``depth`` (default: full depth).
+    Returns (result, model, state, step function, data stream)."""
+    mbs, rows, seq, steps = run
+    cuda = device.type == "cuda"
+    model = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(seed))
+    state = init_train_state(model, make_optimizer(opt))
+    step_fn = make_train_step(model, microbatches=mbs, impl="kernel",
+                              learning_rate=LEARNING_RATE,
+                              optimizer=make_optimizer(opt))
+    stream = TokenStream(DataConfig(cfg.vocab_size, mbs * rows, seq))
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, gnorms, times = [], [], []
+    _zero_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, stream.batch_at(i))
+        losses.append(float(metrics["loss"]))        # waits for the step
+        gnorms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+    decode, fwd, bwd, scan = _counts()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    attn_layers = sum(d.kind != "mamba" for d in model.descs)
+    calls = attn_layers * mbs * steps
+    expect_bwd, expect_fwd = (calls, 2 * calls) if cuda else (0, 0)
+    _require(bwd == expect_bwd and fwd == expect_fwd and decode == scan == 0,
+             f"{cfg.name}: flash backward launches {bwd} == {expect_bwd} "
+             f"(attention layers x microbatches x steps), forward {fwd} == "
+             f"{expect_fwd} (twice that: remat), decode {decode} and scan "
+             f"{scan} == 0 (training takes the plain chunked scan)")
+    _require(all(np.isfinite(losses + gnorms)),
+             f"{cfg.name}: every loss and grad norm is finite ({losses}, "
+             f"{gnorms})")
+    tokens = mbs * rows * seq
+    n_params = sum(p.numel() for p in model.parameters())
+    n_layer_params = sum(p.numel() for p in model.layers.parameters())
+    flops = 6 * n_params * tokens + 2 * n_layer_params * tokens
+    step_s = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    share = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    card = _card(device)
+    depth = depth or f"and depth ({cfg.n_layers} layers)"
+    print(f"[{tag}] {cfg.name} at full width {depth}, {n_params / 1e9:.3f} B "
+          f"parameters, {cfg.dtype}, {opt}, "
+          f"remat, {steps} steps of {mbs} microbatch(es) of {rows} x {seq} "
+          f"tokens; {card}")
+    print("  loss " + " ".join(f"{x:.4f}" for x in losses))
+    print("  grad_norm " + " ".join(f"{x:.4f}" for x in gnorms))
+    print(f"  step {step_s:.4f} s (median after the first, host clock; first "
+          f"{times[0]:.3f} s), {tokens / step_s:.0f} tokens/s, "
+          f"{share * 100:.2f} % of the 989 TFLOP/s bf16 peak (6 P T + 2 "
+          f"P_layers T), peak memory {peak / 2**30:.2f} GiB of "
+          f"{_card_gib(device):.2f} GiB; flash launches forward {fwd}, "
+          f"backward {bwd}, scan {scan}; {card}")
+    out = {"model": cfg.name, "optimizer": opt, "losses": losses,
+           "grad_norms": gnorms, "step_s": step_s, "first_step_s": times[0],
+           "tokens_per_s": tokens / step_s, "peak_share": share,
+           "peak_bytes": peak, "flash_fwd_launches": fwd,
+           "flash_bwd_launches": bwd}
+    return out, model, state, step_fn, stream
+
+
+def _card_gib(device) -> float:
+    if device.type != "cuda":
+        return 0.0
+    return torch.cuda.get_device_properties(device).total_memory / 2**30
+
+
+def _kernel_vs_plain_grads(model, batch, tag: str,
+                           reference: bool = False) -> dict:
+    """One microbatch's gradients in the model's dtype through the kernels
+    and through the plain attention (``xla``).  Without ``reference``,
+    held: cosine >= 0.99 for every parameter tensor.  With it, also the
+    gradients of a float32 copy of the same weights through the plain
+    attention, and held: every tensor's relative L2 error against them
+    through the kernels within GRAD_ERR_MARGIN times the plain path's, plus
+    GRAD_ERR_FLOOR (the kernel's own rounding no worse than the plain
+    attention's, as FlashAttention's tests hold it); the cosine is then
+    printed only."""
+    params = list(model.parameters())
+    ref = None
+    if reference:
+        copy = Model(model.cfg, device=model.device, dtype=torch.float32)
+        copy.load_state_dict(model.state_dict())
+        ref = torch.autograd.grad(copy.loss(batch, impl="xla")[0],
+                                  list(copy.parameters()))
+        del copy
+        _release(model.device)
+    gk = torch.autograd.grad(model.loss(batch, impl="kernel")[0], params)
+    gx = torch.autograd.grad(model.loss(batch, impl="xla")[0], params)
+    cos = [float(F.cosine_similarity(a.float().flatten(), b.float().flatten(),
+                                     dim=0)) for a, b in zip(gk, gx)]
+    out = {"min_cosine": min(cos)}
+    line = (f"  one microbatch's gradients in {model.dtype}, kernel vs plain "
+            f"attention: min cosine {min(cos):.6f} over {len(cos)} tensors")
+    if ref is None:
+        _require(min(cos) >= 0.99, f"{tag}: gradient cosine kernel vs plain "
+                 f">= 0.99 for every parameter tensor (min {min(cos):.5f})")
+        print(line)
+        return out
+
+    def rel(g, r):
+        r = r.double()
+        return float(torch.linalg.vector_norm(g.double() - r)
+                     / torch.linalg.vector_norm(r).clamp(min=1e-30))
+    ek = np.array([rel(g, r) for g, r in zip(gk, ref)])
+    ex = np.array([rel(g, r) for g, r in zip(gx, ref)])
+    ratio = ek / np.maximum(ex, 1e-30)
+    worst = int(np.argmax(ratio))
+    names = [n for n, _ in model.named_parameters()]
+    out.update(max_err_ratio=float(ratio.max()),
+               kernel_err_median=float(np.median(ek)),
+               plain_err_median=float(np.median(ex)))
+    _require(bool((ek <= GRAD_ERR_MARGIN * ex + GRAD_ERR_FLOOR).all()),
+             f"{tag}: every gradient tensor's relative error to float32 "
+             f"through the kernels within {GRAD_ERR_MARGIN} x the plain "
+             f"attention's + {GRAD_ERR_FLOOR} (largest ratio "
+             f"{ratio[worst]:.3f}, {names[worst]}: {ek[worst]:.4g} vs "
+             f"{ex[worst]:.4g})")
+    print(line + " (printed, not held: two plain attentions differ as much)")
+    print(f"  against a float32 copy of the same weights, relative L2 error "
+          f"per tensor: kernels median {np.median(ek):.4g}, largest "
+          f"{ek.max():.4g}; plain median {np.median(ex):.4g}, largest "
+          f"{ex.max():.4g}; kernel / plain median {np.median(ratio):.3f}, "
+          f"largest {ratio[worst]:.3f} ({names[worst]}; held <= "
+          f"{GRAD_ERR_MARGIN})")
+    return out
+
+
+def _checkpoint_resume(cfg, device, state, step_fn, stream, run: tuple,
+                       workdir: Path) -> dict:
+    """Save ``state`` with ``AsyncCheckpointer``, restore it into a fresh
+    model and state, and take one step from each on the same batch: the
+    losses must be equal bit for bit.  The checkpoint is deleted."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    saver = ckpt.AsyncCheckpointer(str(workdir))
+    saver.save(state["step"], state)
+    saver.wait()
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in workdir.rglob("*") if f.is_file())
+    fresh = Model(cfg, device=device,
+                  generator=torch.Generator(device=device).manual_seed(1))
+    opt = "adafactor" if "f" in state["opt"] else "adamw"
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore(str(workdir), init_train_state(
+        fresh, make_optimizer(opt)))
+    restore_s = time.perf_counter() - t0
+    fresh_step = make_train_step(fresh, microbatches=run[0], impl="kernel",
+                                 learning_rate=LEARNING_RATE,
+                                 optimizer=make_optimizer(opt))
+    batch = stream.batch_at(at)
+    _, m_live = step_fn(state, batch)
+    _, m_back = fresh_step(restored, batch)
+    live, back = m_live["loss"].detach().cpu(), m_back["loss"].detach().cpu()
+    _require(at == state["step"] - 1 and torch.equal(live, back),
+             f"the step from the restored state gives the live state's loss "
+             f"bit for bit ({float(live)!r} vs {float(back)!r})")
+    shutil.rmtree(workdir)
+    print(f"  checkpoint of the {opt} state at step {at}: {nbytes / 2**30:.3f} "
+          f"GiB in {save_s:.2f} s (AsyncCheckpointer, host copy and write), "
+          f"restored into a fresh model in {restore_s:.2f} s; the next step's "
+          f"loss {float(live):.6f} both ways, bit for bit; deleted")
+    del fresh, restored, fresh_step
+    return {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "loss": float(live)}
+
+
+def phase_train_hybrid(cfg, device, run: tuple = HYBRID_RUN,
+                       workdir: Path = PHASE17_DIR) -> dict:
+    """``[17 hybrid]``: AdamW steps, then Adafactor steps on a fresh model
+    and state; the trained model's bf16 gradients against a float32
+    reference, beside the plain attention's; the checkpoint resume of the
+    Adafactor state."""
+    out = {}
+    for opt in ("adamw", "adafactor"):
+        res, model, state, step_fn, stream = _train_family(cfg, device, opt,
+                                                           run, "17 hybrid")
+        out[opt] = res
+        if opt == "adamw":
+            mb = {k: v[:run[1]] for k, v in stream.batch_at(run[3]).items()}
+            del state, step_fn
+            _release(device)
+            res.update(_kernel_vs_plain_grads(model, mb, cfg.name,
+                                              reference=True))
+        else:
+            out["checkpoint"] = _checkpoint_resume(cfg, device, state, step_fn,
+                                                   stream, run, workdir)
+            del state, step_fn
+        del model
+        _release(device)
+    return out
+
+
+def phase_train_dense(cfg, device, run: tuple = DENSE_RUN) -> dict:
+    """``[17 dense]``: Adafactor steps at full width and depth, and the
+    gradients against the plain attention's."""
+    res, model, state, step_fn, stream = _train_family(cfg, device,
+                                                       "adafactor", run,
+                                                       "17 dense")
+    del state, step_fn
+    _release(device)
+    mb = {k: v[:run[1]] for k, v in stream.batch_at(run[3]).items()}
+    res.update(_kernel_vs_plain_grads(model, mb, cfg.name))
+    del model
+    _release(device)
+    return res
+
+
+def phase_examples(examples=EXAMPLES, cpu: bool = False,
+                   timeout: float = 200.0) -> dict:
+    """The example counterparts as child processes side by side, as a user
+    runs them (``--cpu`` appended off the card): each must exit 0 and
+    print its summary lines.  Returns their wall seconds."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = []
+    for script, args, _ in examples:
+        cmd = [sys.executable, str(root / "examples" / script)] + list(args)
+        procs.append((time.perf_counter(), subprocess.Popen(
+            cmd + (["--cpu"] if cpu else []), cwd=root, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    walls = {}
+    for (script, args, lines), (t0, proc) in zip(examples, procs):
+        try:
+            text, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for _, other in procs:
+                other.kill()
+            raise
+        walls[script] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(text[-8000:], file=sys.stderr)
+        _require(proc.returncode == 0, f"{script} {' '.join(args)} exited 0 "
+                 f"({proc.returncode})")
+        missing = [x for x in lines if x not in text]
+        _require(not missing, f"{script} printed its summary lines ({missing})")
+        summary = [x for x in text.splitlines()
+                   if any(x.strip().startswith(y.strip()[:12]) for y in lines)]
+        print(f"[17 examples] {script} {' '.join(args)}: exit 0 in "
+              f"{walls[script]:.1f} s; " + " | ".join(x.strip() for x in summary[:4]))
+    return walls
+
+
+def phase17(device, *, hybrid=None, dense=None, hybrid_run=HYBRID_RUN,
+            dense_run=DENSE_RUN, examples=EXAMPLES,
+            limit_s: float = PHASE17_LIMIT_S,
+            workdir: Path = PHASE17_DIR) -> dict:
+    """Phase 17: the hybrid and the dense model trained at full width, then
+    the examples; the phase's wall time is printed and held to its
+    limit."""
+    t0 = time.perf_counter()
+    hybrid = hybrid or get_config(TRAIN_HYBRID)
+    dense = dense or get_config(TRAIN_DENSE)
+    hyb = phase_train_hybrid(hybrid, device, hybrid_run, workdir)
+    den = phase_train_dense(dense, device, dense_run)
+    walls = phase_examples(examples, cpu=device.type != "cuda")
+    wall = time.perf_counter() - t0
+    print(f"[17 end] phase 17 in {wall:.1f} s (limit {limit_s} s)")
+    _require(wall <= limit_s, f"phase 17 took {wall:.1f} s")
+    runs = [hyb["adamw"], hyb["adafactor"], den]
+    return {"hybrid": hyb, "dense": den, "examples_s": walls, "wall_s": wall,
+            "flash_fwd_launches": sum(r["flash_fwd_launches"] for r in runs),
+            "flash_bwd_launches": sum(r["flash_bwd_launches"] for r in runs)}
+
+
 def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                  train: dict, mamba_serving: dict, mamba_prefill: dict,
                  loop: dict, cli: dict, families: dict = None,
                  plan: dict = None, phase15: dict = None,
-                 phase16: dict = None) -> dict:
+                 phase16: dict = None, phase17: dict = None) -> dict:
     """Launches are counted on the main paths: decode while serving llama3
     (one run), granite-20b and phase 14's families (one run each), over
     phase 12's loop (olmoe-1b-7b's scoring included) and sweep scoring and
@@ -2938,7 +3259,8 @@ def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
     (``phase15``: its frontends' serving runs and prefills, the enc-dec
     prefill and decode steps, the corpus plan's CLI process) add their
     decode and flash-forward launches, and so do phase 16's serving and
-    prefill under the mesh and outside it (``phase16``)."""
+    prefill under the mesh and outside it (``phase16``), and phase 17's
+    train steps their flash forward and backward launches (``phase17``)."""
     families, plan = families or {}, plan or {}
     fam = list(families.values())
     p15 = list((phase15 or {}).values()) + ([phase16] if phase16 else [])
@@ -2950,8 +3272,10 @@ def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                 + train["flash_fwd_launches"] + loop["flash_launches"]
                 + cli["flash_launches"] + plan.get("flash_launches", 0)
                 + sum(f["prefill"]["flash_launches"] for f in fam if "prefill" in f)
-                + sum(f["flash_launches"] for f in p15),
-                "flash_attention_bwd": train["flash_bwd_launches"],
+                + sum(f["flash_launches"] for f in p15)
+                + (phase17 or {}).get("flash_fwd_launches", 0),
+                "flash_attention_bwd": train["flash_bwd_launches"]
+                + (phase17 or {}).get("flash_bwd_launches", 0),
                 "mamba_scan": mamba_serving["scan_launches"]
                 + mamba_prefill["scan_launches"]
                 + sum(f["scan_launches"] + f.get("prefill", {}).get("scan_launches", 0)
@@ -3029,7 +3353,9 @@ def main() -> int:
     families = [get_config(n) for n in (MLA, MOE, HYBRID)]
     frontends = [get_config(n) for n in (VLM, LLAMA4, SEAMLESS)]
     kernels = phase_kernels(cfg, device, family_cfgs=families + frontends,
-                            flash_shapes=frontend_flash_shapes(*frontends))
+                            flash_shapes=frontend_flash_shapes(*frontends),
+                            train_shapes=train_flash_shapes(
+                                get_config(TRAIN_HYBRID), get_config(TRAIN_DENSE)))
     kernels.update(phase_scan(mcfg, device,
                               family_cfgs=[c for c in families if c.ssm_state]))
     serving = phase_serving(cfg, device)
@@ -3053,9 +3379,11 @@ def main() -> int:
                              base_db=CLI_DIR / "merged.sqlite", db=PHASE14_DB)
     p15 = phase15(frontends, device, CLI_DIR / "merged.sqlite")
     p16 = phase16(device)
+    _release(device)
+    p17 = phase17(device)
     print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill, loop, cli, served, plan, p15, p16)
+                 mamba_prefill, loop, cli, served, plan, p15, p16, p17)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -9,6 +9,9 @@ The scan follows the backend: ``impl="kernel"`` sends it through
 ``ops.selective_scan`` (the CUDA kernel on the card, at S=1 for a decode
 step); every other backend runs ``selective_scan_chunked`` and
 ``ref.selective_scan_step``, the plain scans the reference always runs.
+The model's full-sequence forward, which training differentiates, asks
+for the plain scan under every backend (``transformer.forward_scan``): the
+kernel has no backward, nor has the reference's.
 """
 from __future__ import annotations
 

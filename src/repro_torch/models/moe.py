@@ -18,6 +18,15 @@ wait for the card; the engine never selects it.
 
 Router logits, probabilities and aux losses are float32 on float32
 activations; the router's weight stays float32 in a bf16 model.
+
+Under a mesh (``parallel.sharding.use_mesh``, DTensor activations) the
+dispatch is expert parallel: every device gathers the batch's tokens and
+the router, routes, sorts and dispatches them as ``moe_tokens`` does, runs
+the (E, C, D) grouped products on the experts of its own shard of the
+expert dim only, gathers the experts' outputs, combines, and gives the
+result back in the batch's sharding.  DTensor has no sharded sort; the
+reference's XLA partitions its sort-based dispatch by itself, so the
+collectives of the two differ, not the numbers.
 """
 from __future__ import annotations
 
@@ -30,7 +39,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import MLP, Linear, _normal
-from repro_torch.parallel.sharding import _is_dtensor, constrain, gathered
+from repro_torch.parallel.sharding import (_is_dtensor, constrain, from_local,
+                                           gathered, local_like)
 
 CAPACITY_FACTOR = 1.25
 MOE_TOKEN_CHUNK = 65_536
@@ -93,10 +103,7 @@ def moe_ffn(moe: MoE, x: torch.Tensor, *, impl: str = "dropping"
     b, s, d = x.shape
     t = b * s
     if _is_dtensor(x):
-        raise NotImplementedError(
-            "moe_ffn under a mesh: the sort-based dispatch orders every "
-            "token of the batch at once, and DTensor has no sharded sort "
-            "(expert parallelism over the data axes is not ported)")
+        return _moe_ffn_mesh(moe, x, impl=impl)
     if t > MOE_TOKEN_CHUNK:
         n = next((c for c in range(2, s + 1)
                   if s % c == 0 and t // c <= MOE_TOKEN_CHUNK), 1)
@@ -140,8 +147,9 @@ def moe_tokens(moe: MoE, x: torch.Tensor, *, impl: str = "dropping"
     slots = ys.new_zeros((t * k, d))
     slots[order] = ys * w[:, None].to(ys.dtype)            # token-major again
     out = slots.reshape(t, k, d).sum(1)
-    if cfg.n_shared_experts > 0:
-        out = out + moe.shared(xt)
+    shared = getattr(moe, "shared", None)
+    if shared is not None:
+        out = out + shared(xt)
 
     # ---- aux losses ---------------------------------------------------
     ce = group_sizes.float() / (t * k)
@@ -170,11 +178,16 @@ def _expert_mlp_dropping(moe: MoE, xs: torch.Tensor, sorted_e: torch.Tensor,
     xg = xs.new_zeros((e * cap + 1, xs.shape[1]))
     xg[dest] = xs
     xg = constrain(xg[:-1].reshape(e, cap, xs.shape[1]), "experts", None, None)
+    local = isinstance(moe, _LocalMoE)
+    if local:
+        xg = moe.own(xg)                     # this device's experts' rows
     up, down = (gathered(getattr(moe, n), moe.axes[n]) for n in ("up", "down"))
     h = _expert_act(moe, torch.bmm(xg, up),
                     lambda: torch.bmm(xg, gathered(moe.gate, moe.axes["gate"])))
     h = constrain(h, "experts", None, "moe_ff")
     yg = torch.bmm(h, down)                                           # (E,C,D)
+    if local:
+        yg = moe.gather(yg, e)
     ys = torch.cat([yg.reshape(e * cap, -1), yg.new_zeros((1, yg.shape[-1]))])
     return ys[dest]
 
@@ -191,3 +204,64 @@ def _expert_mlp_ragged(moe: MoE, xs: torch.Tensor,
         out.append(h @ moe.down[i])
         start += n
     return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
+# under a mesh: expert parallel over the expert dim's shards
+# ---------------------------------------------------------------------------
+
+class _LocalMoE:
+    """One MoE layer's weights as this device's plain tensors, for the
+    dispatch under a mesh: the router whole, and the experts of this
+    device's shard of the expert dim (``experts``: the placements of that
+    shard, replicated on every other mesh dim), each whole along its other
+    dims.  The gathers are DTensor redistributions, so their backward
+    reduces each weight's gradient onto its shard."""
+
+    shared = None                # the shared expert runs on the DTensors
+
+    def __init__(self, moe: MoE, mesh, experts: list):
+        from torch.distributed.tensor import Replicate
+        rep = [Replicate()] * mesh.ndim
+        self.cfg, self.axes = moe.cfg, moe.axes
+        self.mesh, self.experts, self.rep = mesh, experts, rep
+        w = local_like(moe.router.w, mesh, rep)
+        self.router = lambda h: h @ w
+        for n in ("up", "gate", "down"):
+            if hasattr(moe, n):
+                setattr(self, n, local_like(getattr(moe, n), mesh, experts))
+
+    def own(self, xg: torch.Tensor) -> torch.Tensor:
+        """The rows of this device's experts of the (E, C, D) dispatch that
+        every device built alike."""
+        return from_local(xg, self.mesh, self.rep, xg.shape).redistribute(
+            self.mesh, self.experts).to_local()
+
+    def gather(self, yg: torch.Tensor, e: int) -> torch.Tensor:
+        """Every expert's (C, D) outputs from each device's own."""
+        shape = (e,) + tuple(yg.shape[1:])
+        return from_local(yg, self.mesh, self.experts, shape).redistribute(
+            self.mesh, self.rep).to_local()
+
+
+def _moe_ffn_mesh(moe: MoE, x: torch.Tensor, *, impl: str
+                  ) -> Tuple[torch.Tensor, Aux]:
+    """``moe_ffn`` of the DTensor x: the batch's tokens gathered on every
+    device, routed, sorted and dispatched as on one device; the grouped
+    products on this device's experts (all of them for ``ragged``, which
+    slices the experts by their counts); the experts' outputs gathered and
+    combined; the result laid out as x, and the shared expert added on the
+    DTensors.  The aux terms come back as replicated DTensors."""
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    experts = list(getattr(moe.up, "placements", rep))
+    experts = [p if p.is_shard(0) and impl != "ragged" else Replicate()
+               for p in experts]
+    out, aux = moe_ffn(_LocalMoE(moe, mesh, experts),
+                       local_like(x, mesh, rep), impl=impl)
+    out = from_local(out, mesh, rep, tuple(x.shape)).redistribute(
+        mesh, x.placements)
+    if getattr(moe, "shared", None) is not None:
+        out = out + moe.shared(x)
+    return out, {k: from_local(v, mesh, rep, ()) for k, v in aux.items()}

@@ -137,7 +137,7 @@ def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
     cache: Cache = {}
     if desc.kind == "mamba":
         if not collect_cache:
-            return _res(x, block.mamba(h, impl=impl)), None, None
+            return _res(x, block.mamba(h, impl=forward_scan(impl))), None, None
         y, (tail, hs) = block.mamba(h, return_state=True, impl=impl)
         return _res(x, y), None, {"conv": tail, "h": hs}
     if block.cfg.attn_type == "mla":
@@ -158,11 +158,20 @@ def block_apply(block: Block, x: torch.Tensor, *, positions: torch.Tensor,
             ym, (tail, hs) = block.mamba(h, return_state=True, impl=impl)
             cache.update(conv=tail, h=hs)
         else:
-            ym = block.mamba(h, impl=impl)
+            ym = block.mamba(h, impl=forward_scan(impl))
         y = y + ym
     x = _cross(block, _res(x, y), enc_kv, impl)
     y2, aux = _ffn(block, x)
     return _res(x, y2), aux, (cache or None)
+
+
+def forward_scan(impl: str) -> str:
+    """The backend of a Mamba mixer in the full-sequence forward without a
+    cache, the path that training differentiates: the plain chunked scan
+    for every attention backend, as the reference's model always runs it.
+    The scan kernel has no backward (nor has the reference's); it serves
+    ``kernel``'s prefill, chunked-prefill and decode paths."""
+    return "chunked" if impl == "kernel" else impl
 
 
 def _fill_ring(kv: torch.Tensor, slots: int) -> torch.Tensor:

@@ -31,6 +31,8 @@ allocating: ``param_axes`` (each parameter's logical axes: the reference's
 ``ParamSpec.axes`` without its stacked ``layers`` axis, as the port keeps
 one tensor per layer), ``abstract_params``, ``cache_spec`` and
 ``input_specs``, all meta tensors of the reference's shapes and dtypes.
+``param_stacks`` names the port's parameters that each of the reference's
+leaves stacks, so an optimizer can treat them as the reference does.
 """
 from __future__ import annotations
 
@@ -283,6 +285,21 @@ class Model(nn.Module):
             out[name] = self.get_submodule(owner).axes[leaf]
         return out
 
+    def param_stacks(self) -> Dict[str, Tuple[str, ...]]:
+        """{stacked reference leaf (``stack_key``): the parameter names it
+        stacks, in order}: ``params_from_jax``'s layout inverted, what an
+        optimizer needs to treat the per-layer tensors as the reference's
+        leaves.  The ``blocks`` and ``enc_blocks`` leaves stack layers j,
+        j + p, j + 2p, ... of period position j along a leading dim.  A
+        parameter named in no stack is a leaf of the reference's as it is
+        (``embed``, ``final_norm``, ``enc_norm``, ``lm_head``), at the
+        path its name spells with ``/`` for ``.``."""
+        out: Dict[str, List[str]] = {}
+        for path, j, name in _leaf_map(self.cfg, period(self.cfg)):
+            if j is not None:
+                out.setdefault(stack_key(path), []).append(name)
+        return {k: tuple(v) for k, v in out.items()}
+
     def abstract_params(self) -> Dict[str, torch.Tensor]:
         """{parameter name: a meta tensor of its shape and dtype}."""
         return {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
@@ -431,65 +448,87 @@ def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig
 
     The reference stacks each position of its layer period along a leading
     dim: layer ``i`` is ``blocks[i % p][...][i // p]``."""
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, copy=True))
+    out = {}
+    for path, j, name in _leaf_map(cfg, len(tree["blocks"])):
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        out[name] = torch.from_numpy(np.array(leaf if j is None else leaf[j],
+                                              copy=True))
+    return out
 
-    blocks = tree["blocks"]
-    p = len(blocks)
-    out = {"embed.table": t(tree["embed"]["table"]),
-           "final_norm.scale": t(tree["final_norm"]["scale"])}
+
+def period(cfg: ModelConfig) -> int:
+    """The length of the reference's layer period: the smallest p whose
+    pattern of block descriptions repeats over the layers."""
+    descs = tfm.layer_descs(cfg)
+    n = len(descs)
+    return next((p for p in range(1, n + 1)
+                 if n % p == 0 and descs == descs[:p] * (n // p)), n)
+
+
+def stack_key(path: Tuple) -> str:
+    """A reference leaf's path as one string, ``blocks/0/attn/q/w``."""
+    return "/".join(str(k) for k in path)
+
+
+def _leaf_map(cfg: ModelConfig, p: int):
+    """(path into the reference's tree, index along its stacked dim or
+    None, port parameter name) for every parameter, layer by layer."""
+    yield ("embed", "table"), None, "embed.table"
+    yield ("final_norm", "scale"), None, "final_norm.scale"
     if not cfg.tie_embeddings:
-        out["lm_head.w"] = t(tree["lm_head"]["w"])
+        yield ("lm_head", "w"), None, "lm_head.w"
     if cfg.is_encdec:
-        enc = tree["enc_blocks"][0]
-        out["enc_norm.scale"] = t(tree["enc_norm"]["scale"])
+        yield ("enc_norm", "scale"), None, "enc_norm.scale"
+        enc = ("enc_blocks", 0)
         for i in range(cfg.n_enc_layers):
             pre = f"enc_layers.{i}."
             for a in ("ln1", "ln2"):
-                out[pre + f"{a}.scale"] = t(enc[a]["scale"][i])
+                yield enc + (a, "scale"), i, pre + f"{a}.scale"
             for a, name in _ATTN_NAMES.items():
-                out[pre + f"self_attn.{name}.w"] = t(enc["attn"][a]["w"][i])
-            out.update(_mlp_params(enc["ffn"], i, pre + "mlp.", t))
+                yield enc + ("attn", a, "w"), i, pre + f"self_attn.{name}.w"
+            yield from _mlp_leaves(enc + ("ffn",), cfg.act, i, pre + "mlp.")
     kinds = cfg.layer_kinds()
     for i in range(cfg.n_layers):
-        blk, j = blocks[i % p], i // p
+        blk, j = ("blocks", i % p), i // p
         pre = f"layers.{i}."
-        out[pre + "ln1.scale"] = t(blk["ln1"]["scale"][j])
-        if "xattn" in blk:
-            x = blk["xattn"]
-            out[pre + "ln_x.scale"] = t(blk["ln_x"]["scale"][j])
-            out[pre + "cross_attn.q_proj.w"] = t(x["q"]["w"][j])
-            out[pre + "cross_attn.o_proj.w"] = t(x["o"]["w"][j])
-            out[pre + "k_proj.w"] = t(x["k"]["w"][j])
-            out[pre + "v_proj.w"] = t(x["v"]["w"][j])
+        yield blk + ("ln1", "scale"), j, pre + "ln1.scale"
+        if cfg.is_encdec:
+            x = blk + ("xattn",)
+            yield blk + ("ln_x", "scale"), j, pre + "ln_x.scale"
+            yield x + ("q", "w"), j, pre + "cross_attn.q_proj.w"
+            yield x + ("o", "w"), j, pre + "cross_attn.o_proj.w"
+            yield x + ("k", "w"), j, pre + "k_proj.w"
+            yield x + ("v", "w"), j, pre + "v_proj.w"
         if kinds[i] in ("mamba", "hybrid"):
-            m = blk["mamba"]
+            m = blk + ("mamba",)
             for a in ("in_proj", "x_proj", "out_proj"):
-                out[pre + f"mamba.{a}.w"] = t(m[a]["w"][j])
+                yield m + (a, "w"), j, pre + f"mamba.{a}.w"
             for a in ("conv_w", "conv_b", "dt_w", "dt_b", "A_log", "D"):
-                out[pre + f"mamba.{a}"] = t(m[a][j])
+                yield m + (a,), j, pre + f"mamba.{a}"
         if kinds[i] == "mamba":
             continue
-        out[pre + "ln2.scale"] = t(blk["ln2"]["scale"][j])
-        attn = blk["attn"]
+        yield blk + ("ln2", "scale"), j, pre + "ln2.scale"
+        attn = blk + ("attn",)
         if cfg.attn_type == "mla":
             for a, name in _MLA_NAMES.items():
                 leaf = "scale" if name.endswith("norm") else "w"
-                out[pre + f"mla_attn.{name}.{leaf}"] = t(attn[a][leaf][j])
+                yield attn + (a, leaf), j, pre + f"mla_attn.{name}.{leaf}"
         else:
             for a, name in _ATTN_NAMES.items():
-                out[pre + f"self_attn.{name}.w"] = t(attn[a]["w"][j])
-        ffn = blk["ffn"]
+                yield attn + (a, "w"), j, pre + f"self_attn.{name}.w"
+        ffn = blk + ("ffn",)
         if kinds[i] == "moe":
-            out[pre + "moe.router.w"] = t(ffn["router"]["w"][j])
+            yield ffn + ("router", "w"), j, pre + "moe.router.w"
             for a in ("up", "gate", "down"):
-                if a in ffn:
-                    out[pre + f"moe.{a}"] = t(ffn[a]["w"][j])
-            if "shared" in ffn:
-                out.update(_mlp_params(ffn["shared"], j, pre + "moe.shared.", t))
+                if a != "gate" or cfg.act == "silu":
+                    yield ffn + (a, "w"), j, pre + f"moe.{a}"
+            if cfg.n_shared_experts > 0:
+                yield from _mlp_leaves(ffn + ("shared",), cfg.act, j,
+                                       pre + "moe.shared.")
         else:
-            out.update(_mlp_params(ffn, j, pre + "mlp.", t))
-    return out
+            yield from _mlp_leaves(ffn, cfg.act, j, pre + "mlp.")
 
 
 #: the reference's attention parameters -> the port's projections
@@ -499,6 +538,7 @@ _MLA_NAMES = {"wdq": "q_down", "q_norm": "q_norm", "wuq": "q_up",
               "wuv": "v_up", "o": "o_proj"}
 
 
-def _mlp_params(tree, j: int, prefix: str, t) -> Dict[str, torch.Tensor]:
-    return {prefix + f"{a}_proj.w": t(tree[a]["w"][j])
-            for a in ("up", "gate", "down") if a in tree}
+def _mlp_leaves(path: Tuple, act: str, j: int, prefix: str):
+    for a in ("up", "gate", "down"):
+        if a != "gate" or act == "silu":
+            yield path + (a, "w"), j, prefix + f"{a}_proj.w"

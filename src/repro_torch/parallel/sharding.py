@@ -220,6 +220,12 @@ def local_like(t, mesh, placements, varies=()) -> torch.Tensor:
     if not _is_dtensor(t):
         t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
+    elif t.device_mesh is not mesh:
+        # an equal mesh of an earlier process group (DTensor's sharding
+        # cache hands back the spec, mesh and all, that it first saw for a
+        # shape, as a ``Parameter``'s detach does): collectives run on the
+        # live one
+        t = from_local(t.to_local(), mesh, t.placements, tuple(t.shape))
     return t.redistribute(mesh, placements).to_local(
         grad_placements=grad_placements(placements, varies))
 

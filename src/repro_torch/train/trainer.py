@@ -13,7 +13,10 @@ returns ``train_step(state, batch) -> (state, metrics)``:
   (autograd's ``.grad`` would add in the parameter dtype); with one they
   stay in the parameter dtype;
 * an optional ``grad_transform`` (``parallel.compression``), then global
-  clipping, then the config-selected optimizer (AdamW / Adafactor).
+  clipping, then the config-selected optimizer (AdamW / Adafactor), given
+  the model's ``param_stacks`` so that it treats the per-layer tensors as
+  the reference's stacked leaves (Adafactor's clip and factoring, and its
+  state's layout, depend on them).
 
 The state is ``{"step": int, "params": {name: parameter}, "opt": ...}``;
 its parameters are the model's own tensors, so the step updates the model
@@ -41,14 +44,15 @@ def init_train_state(model: Model, optimizer=None) -> dict:
     """The train state around the model's current parameters."""
     opt = optimizer or make_optimizer(model.cfg.optimizer)
     params = dict(model.named_parameters())
-    return {"step": 0, "params": params, "opt": opt.init(params)}
+    return {"step": 0, "params": params,
+            "opt": opt.init(params, model.param_stacks())}
 
 
 def abstract_train_state(model: Model, optimizer=None) -> dict:
     """The train state's layout as meta tensors, allocating nothing."""
     opt = optimizer or make_optimizer(model.cfg.optimizer)
     params = model.abstract_params()
-    state = opt.init(params)
+    state = opt.init(params, model.param_stacks())
     scalar = torch.empty((), dtype=torch.int32, device="meta")
     state["count"] = scalar
     return {"step": scalar.clone(), "params": params, "opt": state}
@@ -58,7 +62,7 @@ def train_state_axes(model: Model, optimizer=None) -> dict:
     opt = optimizer or make_optimizer(model.cfg.optimizer)
     param_axes = model.param_axes()
     return {"step": (), "params": param_axes,
-            "opt": opt.state_axes(param_axes)}
+            "opt": opt.state_axes(param_axes, model.param_stacks())}
 
 
 def _microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
@@ -93,6 +97,7 @@ def make_train_step(model: Model, *, microbatches: int = 1,
     as the reference's cost analysis counts a scan's body by its trip
     count (``launch.dryrun.StepMeter.scan``)."""
     opt = optimizer or make_optimizer(model.cfg.optimizer)
+    stacks = model.param_stacks()
 
     def loss_and_grads(params: Tree, mb: Mapping[str, torch.Tensor]):
         loss, metrics = model.loss(mb, impl=impl)
@@ -134,7 +139,7 @@ def make_train_step(model: Model, *, microbatches: int = 1,
         if grad_transform is not None:
             grads = grad_transform(grads)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
-        opt.update(grads, state["opt"], params, learning_rate)
+        opt.update(grads, state["opt"], params, learning_rate, stacks)
         metrics = dict(metrics)
         metrics.update({"loss": loss, "grad_norm": gnorm})
         state["step"] += 1

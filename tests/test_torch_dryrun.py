@@ -106,6 +106,21 @@ def test_decode_cells_run(arch, multi_pod):
     assert not torch.distributed.is_initialized()
 
 
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-maverick-400b-a17b"])
+def test_moe_decode_cells_run_with_the_references_argument_bytes(arch):
+    """The MoE FFN's expert-parallel dispatch under the mesh: the whole
+    cell runs, and its per-device arguments are the reference's.  Its
+    FLOPs and collectives are the port's own dispatch's (every device
+    routes the whole batch and gathers the experts' outputs), not XLA's
+    partitioning of the reference's."""
+    rec = dryrun.run_cell(arch, "decode_32k", multi_pod=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["bytes_per_device"]["argument"] == reference_argument_bytes(
+        arch, "decode_32k", False)
+    assert rec["roofline"]["collective_by_kind"].get("all-gather", 0) > 0
+    assert not torch.distributed.is_initialized()
+
+
 def test_skips_and_refusals():
     rec = dryrun.run_cell("llama3-8b", "long_500k", multi_pod=False)
     assert rec["status"] == "skip" and "quadratic" in rec["reason"]

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke.py`` loads neither JAX nor any module of the JAX package.
+"""The port stands alone: importing every module of ``repro_torch``,
+``chip_smoke.py`` and the port's examples (``examples/torch_*.py``) loads
+neither JAX nor any module of the JAX package.
 
 Checked in a fresh interpreter, because tests/conftest.py imports jax into
 this one."""
@@ -21,6 +22,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import glob, os, runpy
+for path in sorted(glob.glob(os.path.join(sys.argv[1], "examples", "torch_*.py"))):
+    runpy.run_path(path, run_name="not_main")
 import torch.distributed as dist
 assert "repro_torch.launch.dryrun" in sys.modules
 if dist.is_initialized():
@@ -63,9 +67,16 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+#: the port's counterparts of the reference's examples
+EXAMPLES = ("torch_quickstart", "torch_serve_demo", "torch_trace_sweep_demo",
+            "torch_train_demo")
+
+
 def test_no_source_names_jax_or_repro():
     # also catches imports inside functions, which an import probe misses
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert {f.stem for f in examples} >= set(EXAMPLES)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f

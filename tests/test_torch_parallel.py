@@ -187,13 +187,22 @@ def test_input_specs_and_caches_match_the_reference(name):
                 assert axes[i][k] == ref_axes[i % p][k][1:]
 
 
+def _by_reference_leaf(tree, is_leaf):
+    """{``zoo.stack_key`` of a reference leaf: its subtree} of a tree laid
+    out as the reference's parameters."""
+    flat = jax.tree_util.tree_flatten_with_path(tree, is_leaf=is_leaf)[0]
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): leaf for path, leaf in flat}
+
+
 @pytest.mark.parametrize("opt", ["adamw", "adafactor"])
 def test_state_axes_match_the_reference(opt):
     name = "llama3-8b"
     axes = _reference_axes_by_port_name(name)
     model = _meta_model(get_smoke_config(name))
     jm = build_model(jax_smoke_config(name))
-    port = optimizer.make_optimizer(opt).state_axes(model.param_axes())
+    port = optimizer.make_optimizer(opt).state_axes(model.param_axes(),
+                                                     model.param_stacks())
     ref = jax_opt.make_optimizer(opt).state_axes(jm.param_axes())
     state = trainer.train_state_axes(model, optimizer.make_optimizer(opt))
     assert state == {"step": (), "params": axes, "opt": port}
@@ -202,17 +211,15 @@ def test_state_axes_match_the_reference(opt):
         assert port == {"m": axes, "v": axes, "count": ()}
         assert ref["m"] == ref["v"] == jm.param_axes()
         return
-    for n, ax in axes.items():
-        if len(ax) >= 2:
-            assert port["f"][n] == {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
-        else:
-            assert port["f"][n] == {"v": ax}
-    # the pinned difference: a stacked norm scale (layers, d) is factored
-    # by the reference, the port's per-layer (d,) scale is not
-    assert ref["f"]["blocks"][0]["ln1"]["scale"] == {"vr": ("layers",),
-                                                     "vc": (None,)}
-    assert port["f"]["layers.0.ln1.scale"] == {"v": (None,)}
-    assert ref["f"]["final_norm"]["scale"] == port["f"]["final_norm.scale"]
+    # Adafactor's state axes are the reference's, leaf by leaf: a stacked
+    # norm scale (layers, d) is factored as the reference factors it
+    want = _by_reference_leaf(ref["f"], lambda x: isinstance(x, dict) and all(
+        isinstance(v, tuple) for v in x.values()))
+    # (a leaf that stacks nothing is keyed by its parameter's name)
+    assert {k.replace(".", "/"): v for k, v in port["f"].items()} == want
+    assert port["f"]["blocks/0/ln1/scale"] == {"vr": ("layers",),
+                                               "vc": (None,)}
+    assert port["f"]["final_norm.scale"] == ref["f"]["final_norm"]["scale"]
 
 
 def test_abstract_train_state_is_meta_and_matches_the_axes():
@@ -223,10 +230,17 @@ def test_abstract_train_state_is_meta_and_matches_the_axes():
     assert state["step"].shape == () and axes["step"] == ()
     for n, p in state["params"].items():
         assert p.device.type == "meta" and len(axes["params"][n]) == p.dim()
-        leaf, ax = state["opt"]["f"][n], axes["opt"]["f"][n]
+    # the optimizer's state is laid out by the reference's leaves: the
+    # stacks, and each parameter that no stack names
+    stacks = model.param_stacks()
+    stacked = {n for v in stacks.values() for n in v}
+    assert sorted(state["opt"]["f"]) == sorted(
+        list(stacks) + [n for n in state["params"] if n not in stacked])
+    for key, leaf in state["opt"]["f"].items():
+        ax = axes["opt"]["f"][key]
         assert sorted(leaf) == sorted(ax)
-        assert all(leaf[k].dtype == torch.float32 and leaf[k].dim() == len(ax[k])
-                   for k in leaf)
+        assert all(leaf[k].device.type == "meta" and leaf[k].dtype ==
+                   torch.float32 and leaf[k].dim() == len(ax[k]) for k in leaf)
 
 
 # -- per-device FLOPs -------------------------------------------------------

@@ -8,7 +8,9 @@ an H100; the ``gpu`` test runs phase 16's mesh serving there at the smoke
 configuration.
 
 Tolerance of the four-rank comparison: 2e-5 of each output's largest
-entry (float32; sums over shards reduce in other orders)."""
+entry (float32; sums over shards reduce in other orders).  The MoE FFN's
+expert-parallel dispatch on the same mesh: 1e-6 of each output's largest
+entry (float32), outputs, aux terms and gradients, under both rule sets."""
 import importlib.util
 import json
 import socket
@@ -76,9 +78,9 @@ def test_chip_smoke_phase_16_on_cpu(capsys, tmp_path):
     assert len(dry["wall_s"]) == 2
     cells = {(c["arch"], c["mesh"]): c["status"] for c in dry["cells"]}
     assert cells[("llama3-8b", "single")] == "ok"
-    # the MoE dispatch has no DTensor path yet: an error cell, reported
-    assert cells[("olmoe-1b-7b", "single")] == "error"
-    assert dry["errors"][0][:3] == ("olmoe-1b-7b", "decode_32k", "single")
+    # the MoE dispatch runs expert parallel under the mesh
+    assert cells[("olmoe-1b-7b", "single")] == "ok"
+    assert dry["errors"] == []
 
 
 # -- the DTensor paths on four ranks ----------------------------------------
@@ -191,6 +193,95 @@ def test_sharded_model_matches_plain_on_four_ranks(tmp_path):
     assert {"grad embed.table", "grad lm_head.w",
             "grad layers.0.self_attn.k_proj.w"} <= grads and len(grads) > 20
     assert all(e <= TOL for e in errs.values()), errs
+
+
+MOE_TOL = 1e-6
+
+
+def _four_ranks_moe(rank: int, port: int, out: str):
+    """One rank of a 2 x 2 mesh: ``moe_ffn`` of olmoe-smoke and of
+    llama4-maverick-smoke (a shared expert), its weights and input sharded
+    by the logical axes under each rule set, against the plain path:
+    outputs, aux terms, and the gradients of the weights and the input."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.dryrun import tree_shardings
+    from repro_torch.models.moe import MoE, moe_ffn
+    from repro_torch.parallel.sharding import (SERVE_RULES, TRAIN_RULES,
+                                               use_mesh)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        res = {}
+        for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b"):
+            cfg = get_smoke_config(arch)
+            x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                (4, 6, cfg.d_model), dtype=np.float32))
+            r = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (4, 6, cfg.d_model), dtype=np.float32))
+
+            def full(t):
+                return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+            def moe():
+                return MoE(cfg, device="cpu", dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(0))
+
+            def run(m, xi):
+                y, aux = moe_ffn(m, xi)
+                obj = (y * r).sum() + aux["load_balance"] + aux["router_z"]
+                names = [n for n, _ in m.named_parameters()]
+                g = torch.autograd.grad(obj, [xi] + list(m.parameters()))
+                return y, aux, dict(zip(["x"] + names, g))
+
+            plain = moe()
+            want = run(plain, x.clone().requires_grad_())
+            for label, rules in (("train", TRAIN_RULES), ("serve", SERVE_RULES)):
+                m = moe()
+                params = {n: p.detach() for n, p in m.named_parameters()}
+                axes = {n: m.get_submodule(n.rpartition(".")[0]).axes[
+                    n.rpartition(".")[2]] for n in params}
+                sh = tree_shardings(axes, params, mesh, rules)
+                for n, t in params.items():
+                    owner, _, leaf = n.rpartition(".")
+                    setattr(m.get_submodule(owner), leaf, torch.nn.Parameter(
+                        distribute_tensor(t, mesh, sh[n].placements)))
+                with use_mesh(mesh, rules):
+                    xs = tree_shardings({"x": ("batch", None, None)}, {"x": x},
+                                        mesh, rules)["x"]
+                    xd = distribute_tensor(x, mesh, xs.placements
+                                           ).requires_grad_()
+                    got = run(m, xd)
+                pre = f"{arch} {label} "
+                res[pre + "out"] = (full(got[0]), want[0])
+                for k in want[1]:
+                    res[pre + k] = (full(got[1][k]), want[1][k])
+                for n, g in want[2].items():
+                    res[pre + "grad " + n] = (full(got[2][n]), g)
+        if rank == 0:
+            errs = {k: float((a.detach() - w.detach()).abs().max()
+                             / w.detach().abs().max().clamp(min=1e-30))
+                    for k, (a, w) in res.items()}
+            Path(out).write_text(json.dumps(errs))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_moe_ffn_under_a_mesh_matches_plain_on_four_ranks(tmp_path):
+    out = tmp_path / "errs.json"
+    torch.multiprocessing.spawn(_four_ranks_moe, args=(_port(), str(out)),
+                                nprocs=4, join=True)
+    errs = json.loads(out.read_text())
+    for arch in ("olmoe-1b-7b", "llama4-maverick-400b-a17b"):
+        for label in ("train", "serve"):
+            pre = f"{arch} {label} "
+            assert {pre + k for k in ("out", "load_balance", "router_z",
+                                      "grad x", "grad router.w", "grad up",
+                                      "grad down")} <= set(errs)
+    assert any(k.endswith("grad shared.up_proj.w") for k in errs)
+    assert all(e <= MOE_TOL for e in errs.values()), errs
 
 
 @pytest.fixture
