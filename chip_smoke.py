@@ -2155,6 +2155,126 @@ def _iteration_errors(sim, records) -> dict:
     return out
 
 
+def _admissions(requests, plans) -> dict:
+    """{rid: index of the iteration that admitted it (its first chunk)} of
+    one run, from its requests and its plans (``(chunk lengths, decodes)``
+    an iteration, as DoolySim records them).  The scheduler gives every
+    request still prefilling a chunk, in admission order, before it admits
+    any (the budget that stops it stops admissions too), and admits by
+    arrival: so an iteration with more chunks than requests still
+    prefilling admitted the rest, in order."""
+    waiting = sorted(requests, key=lambda r: r.arrival)[::-1]
+    prefilling, out = [], {}
+    for i, (lengths, _) in enumerate(plans):
+        for j, length in enumerate(lengths):
+            if j >= len(prefilling):
+                if not waiting:
+                    raise ValueError(f"iteration {i} admits more requests "
+                                     "than arrived")
+                r = waiting.pop()
+                out[r.rid] = i
+                prefilling.append([r, r.cache_hit_tokens])
+            entry = prefilling[j]
+            if not 0 < length <= entry[0].prompt_len - entry[1]:
+                raise ValueError(f"iteration {i}: a chunk of {length} tokens "
+                                 f"for request {entry[0].rid} at {entry[1]} of "
+                                 f"{entry[0].prompt_len}")
+            entry[1] += length
+        prefilling = [e for e in prefilling if e[1] < e[0].prompt_len]
+    if waiting or prefilling:
+        raise ValueError(f"{len(waiting)} requests never admitted, "
+                         f"{len(prefilling)} never prefilled")
+    return out
+
+
+def _engine_plans(records) -> list:
+    """An engine run's plans as DoolySim records them: (chunk lengths,
+    decodes) an iteration."""
+    return [(tuple(length for length, _ in r.chunks), r.n_decodes)
+            for r in records]
+
+
+def _agree(a, b) -> int:
+    """How many leading iterations two runs' plans share."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _ttft_split(pred: dict, real: dict, moved) -> dict:
+    """TTFT MAPE of ``pred`` against ``real`` (``request_metrics``) over
+    every request, over those whose admission did not move and over those
+    that did (``moved``: one bool a request, in their order), with the
+    counts."""
+    moved = np.asarray(moved, bool)
+    out = {"all": M.mape(pred["ttft"], real["ttft"]),
+           "n_moved": int(moved.sum()), "n_kept": int((~moved).sum())}
+    for key, mask in (("kept", ~moved), ("moved", moved)):
+        out[key] = (M.mape(pred["ttft"][mask], real["ttft"][mask])
+                    if mask.any() else None)
+    return out
+
+
+def _moved(requests, a: dict, b: dict) -> list:
+    """One bool a finished request of ``requests`` (``request_metrics``'
+    order): did its admission iteration differ between ``a`` and ``b``?"""
+    return [a[r.rid] != b[r.rid] for r in requests if r.done]
+
+
+def _admission_split(pred: dict, pred_run, real: dict, real_run) -> dict:
+    """``_ttft_split`` of one run against another over the requests whose
+    admission iteration moved, and how many leading iterations their
+    schedules share; ``*_run``: (requests, plans)."""
+    moved = _moved(pred_run[0], _admissions(*pred_run), _admissions(*real_run))
+    return {**_ttft_split(pred, real, moved),
+            "agree": _agree(pred_run[1], real_run[1])}
+
+
+def _nearest(pts, t: int, r: int, c: int):
+    """The point of ``pts`` ((toks, reqs, ctx, us) each) at the workload
+    (t, r, c), or else the nearest in log tokens, then in log context."""
+    return min(pts, key=lambda p: (
+        p[:3] != (t, r, c),
+        abs(math.log(max(p[0], 1) * max(p[1], 1)) - math.log(max(t * r, 1))),
+        abs(math.log(max(p[2], 1)) - math.log(max(c, 1)))))
+
+
+def _near_floor_share(sim, points, plans, *, margin_us: float = 1.0) -> dict:
+    """The share of DoolySim's predicted time of each decode-only iteration
+    (``plans``: its run's ``(chunk lengths, decodes)``) that rests on DB
+    points measured less than ``margin_us`` above the oracle's launch floor.
+    ``points``: {(sig, phase): [(toks, reqs, ctx, us)]} as the DB holds
+    them, floor already subtracted (``cuda_events`` stores a point's median
+    less the floor, or 5 % of the median where that is more, both under
+    the margin), so a point is near the floor when it holds less than
+    ``margin_us``.  A call-graph row rests on the point of its signature
+    and mapped phase at its mapped workload, or else the nearest
+    (``_nearest``); a decode call is priced at one workload point, so every
+    decode-only iteration has the same share."""
+    lat = sim.latency
+    phase, toks, reqs, ctx = lat._decode_key()
+    near_s = total_s = 0.0
+    n_near = 0
+    for row in lat.rows:
+        ph, t, r, c = lat._map_row(row, phase, toks, reqs, ctx)
+        pts = points.get((row.sig, ph)) or points.get(
+            (row.sig, "decode" if ph == "prefill" else "prefill"), [])
+        s = row.count * lat.lm.predict(row.sig, ph, toks=t, reqs=r, ctx=c)
+        total_s += s
+        if pts and _nearest(pts, t, r, c)[3] < margin_us:
+            near_s += s
+            n_near += 1
+    _require(abs(total_s - lat.predict_points([(phase, toks, reqs, ctx)])[0])
+             <= 1e-9 + 1e-9 * total_s,
+             "the rows walked sum to DoolySim's price of a decode call")
+    per_iter = lat.overhead_s + lat.decode_scale * total_s
+    share = lat.decode_scale * near_s / per_iter if per_iter > 0 else 0.0
+    shares = [share for lengths, n_dec in plans if not lengths and n_dec]
+    return {"median": float(np.median(shares)) if shares else None,
+            "max": max(shares) if shares else None, "iterations": len(shares),
+            "near_rows": n_near, "rows": len(lat.rows),
+            "predicted_ms": per_iter * 1e3, "margin_us": margin_us}
+
+
 def _bias(pred: dict, real: dict, key: str) -> float:
     """Mean signed relative error of the predicted per-request ``key``
     against the engine's."""
@@ -2262,10 +2382,12 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
     longest = max(r.prompt_len + r.max_new_tokens for r in trace())
     _require(longest <= max_seq, f"every request fits max_seq ({longest} "
              f"<= {max_seq})")
-    real, iterations = [], []
+    real, iterations, runs = [], [], []
     for _ in range(2):
         engine.reset()
-        real.append(M.request_metrics(engine.run(trace())["requests"]))
+        served = engine.run(trace())["requests"]
+        real.append(M.request_metrics(served))
+        runs.append((served, _engine_plans(engine.records)))
         iterations.append((len(engine.records),
                            sum(1 for r in engine.records if not r.n_chunks)))
         drift.append((_decode_ms(engine.records), _card_state(device)))
@@ -2273,20 +2395,36 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
             by_kind = _iteration_errors(sim, engine.records)
     del engine
     _release(device)
-    sim_run = sim.run(trace())
+    sim_run = sim.run(trace(), record_plans=True)
     predicted = M.request_metrics(sim_run["requests"])
     cmp = M.compare(predicted, real[0])
     bad = [k for k, v in cmp.items() if not math.isfinite(v)]
     _require(not bad, f"finite MAPEs of {cfg.name} ({bad})")
+    # the admission iteration of each request, and TTFT scored apart over
+    # the requests whose admission moved: the clock is the measured (or
+    # predicted) time, so a small shift can admit a request an iteration
+    # earlier or later
+    ttft = {"noise": _admission_split(real[1], runs[1], real[0], runs[0]),
+            "sim": _admission_split(predicted, (sim_run["requests"],
+                                                sim_run["plans"]),
+                                    real[0], runs[0])}
+    points = {}
+    for sig, phase, t, r, c, us in store.db.measurements_for_hardware(
+            store.hardware):
+        points.setdefault((sig, phase), []).append((t, r, c, us))
     return {"sim": sim, "trace": trace, "fit": fit, "drift": drift,
             "real": real, "iterations": iterations, "by_kind": by_kind,
             "noise": M.compare(real[1], real[0]), "sim_run": sim_run,
-            "predicted": predicted, "cmp": cmp}
+            "predicted": predicted, "cmp": cmp, "ttft_split": ttft,
+            "near_floor": _near_floor_share(sim, points, sim_run["plans"])}
 
 
-def _print_scored(res: dict, calibration: dict, score: dict):
+def _print_scored(res: dict, calibration: dict, score: dict, floor_us=None):
     """The calibration, the engine's and DoolySim's makespans, the
-    iterations by kind, the drift, the self-noise and the MAPEs."""
+    iterations by kind and the near-floor share of a predicted decode
+    iteration (``floor_us``: the oracle's launch floor, or None), the
+    drift, the self-noise and the MAPEs, and TTFT apart over the requests
+    whose admission moved."""
     real, predicted, cmp = res["real"], res["predicted"], res["cmp"]
     print(f"  calibration on {calibration['n']} requests of "
           f"{calibration['prompt_len']} tokens: " + ", ".join(
@@ -2303,6 +2441,16 @@ def _print_scored(res: dict, calibration: dict, score: dict):
         f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} predicted "
         f"(median), MAPE {v['mape']:.2f} %, bias {v['bias']:+.2f} %"
         for k, v in res["by_kind"].items()))
+    near = res["near_floor"]
+    floor = ("no launch floor" if floor_us is None
+             else f"the {floor_us:.3f} us launch floor")
+    print(f"  near-floor share of DoolySim's decode-only iterations (rows on DB "
+          f"points < {near['margin_us']:g} us above {floor}): "
+          + ("none predicted" if near["iterations"] == 0 else
+             f"median {100 * near['median']:.2f} %, max {100 * near['max']:.2f} "
+             f"% over {near['iterations']} iterations")
+          + f"; {near['near_rows']} of {near['rows']} call-graph rows, "
+          f"{near['predicted_ms']:.4f} ms predicted an iteration")
     print(f"  TTFT mean signed error of DoolySim vs engine run 1: "
           f"{100 * _bias(predicted, real[0], 'ttft'):+.2f} %")
     print("  median decode-only iteration, calibration run and score runs 1 "
@@ -2313,6 +2461,16 @@ def _print_scored(res: dict, calibration: dict, score: dict):
           f"TPOT 8 %: " + ", ".join(
               f"{k} {'held' if cmp[k] <= bar else 'failed'}"
               for k, bar in PAPER_MAPE.items()))
+    for key, what in (("noise", "engine run 2 vs run 1"),
+                      ("sim", "DoolySim vs engine run 1")):
+        t = res["ttft_split"][key]
+        print(f"  admission moved, {what}: {t['n_moved']} of "
+              f"{t['n_moved'] + t['n_kept']} requests (the schedules agree "
+              f"for the first {t['agree']} iterations); TTFT MAPE {t['all']:.2f} "
+              f"over all, " + ", ".join(
+                  f"{'n/a' if t[k] is None else format(t[k], '.2f')} over the "
+                  f"{t['n_' + k]} that {w}"
+                  for k, w in (("kept", "kept theirs"), ("moved", "moved"))))
 
 
 def _scored_summary(res: dict) -> dict:
@@ -2322,7 +2480,8 @@ def _scored_summary(res: dict) -> dict:
             "iteration_errors": res["by_kind"],
             "decode_ms": [ms for ms, _ in res["drift"]],
             "ttft_bias": _bias(res["predicted"], res["real"][0], "ttft"),
-            "sim_iterations": len(res["sim_run"]["iterations"])}
+            "sim_iterations": len(res["sim_run"]["iterations"]),
+            "ttft_split": res["ttft_split"], "near_floor": res["near_floor"]}
 
 
 def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
@@ -2401,7 +2560,7 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
         cmp = res["cmp"]
         _require(cmp["makespan_mape"] <= MAKESPAN_MAPE_LIMIT,
                  f"makespan MAPE {cmp['makespan_mape']:.2f} <= {MAKESPAN_MAPE_LIMIT}")
-        _print_scored(res, calibration, score)
+        _print_scored(res, calibration, score, floor_us)
         print(f"  roofline makespan {roof_run['makespan']:.4f} s; roofline vs "
               f"the engine: {_mapes(roof_cmp)}")
         scored = _sweep_scoring(store, cfg, device, config_fn=config_fn,
@@ -2429,7 +2588,7 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                   f"in the DB), {other_rep.rows_written} points in {other_s:.1f} s; "
                   f"kernel launches (decode, flash fwd, flash bwd, scan) "
                   f"{other_counts}; {_card(device)}")
-            _print_scored(other_res, calibration, score)
+            _print_scored(other_res, calibration, score, floor_us)
             more[other.name] = {**_scored_summary(other_res),
                                 "tasks": len(other_plan.tasks),
                                 "planned_points": other_cov.plan_points,

@@ -329,6 +329,19 @@ def test_chip_smoke_phases_on_cpu(capsys, tmp_path):
     assert loop["calls_per_step"] > 0 and loop["launch_floor_us"] is None
     assert "[12 profile->simulate]" in out and "dedup:" in out
     assert "engine self-noise" in out and "DoolySim vs the engine" in out
+    # the admission shifts and TTFT apart over the requests that moved; the
+    # near-floor share of the predicted decode iterations
+    for key in ("noise", "sim"):
+        split = loop["ttft_split"][key]
+        assert split["n_moved"] + split["n_kept"] == 12
+        assert split["all"] == pytest.approx(
+            loop["noise" if key == "noise" else "sim"]["ttft_mape"])
+    assert out.count("admission moved, engine run 2 vs run 1") == 2
+    assert out.count("admission moved, DoolySim vs engine run 1") == 2
+    near = loop["near_floor"]
+    assert near["iterations"] > 0 and near["rows"] > 0
+    assert 0 <= near["median"] == near["max"] <= 1
+    assert "near-floor share of DoolySim's decode-only iterations" in out
     # phase 12 scores olmoe-1b-7b through the same loop and DB
     olmoe = loop["also"]["olmoe-smoke"]
     assert olmoe["rows"] == olmoe["planned_points"] > 0
