@@ -229,7 +229,7 @@ meshes (the dry run), and checks them, one line per phase:
              trace at tp 1, 2, 4 and 8, a model on NVLink's data-sheet
              figure.  The phase is held to 180 s.
 17. train families — ``[17 hybrid]``: hymba-1.5b at full width and depth
-             (32 layers, bf16) takes 3 AdamW steps, then 3 Adafactor steps
+             (32 layers, bf16) takes 2 AdamW steps, then 2 Adafactor steps
              on a fresh model and state, each of 4 microbatches of 1 x 2048
              tokens with remat, through the flash forward and backward at
              window 1024 and the plain chunked scan (the scan kernel has no
@@ -262,11 +262,40 @@ meshes (the dry run), and checks them, one line per phase:
              (hymba's B 1, S 2048, 25/5 heads, D 64, window 1024, where
              the window cuts keys, against SDPA with a boolean window mask;
              yi-9b's B 4, S 1024, 32/4 heads, D 128, causal).
+18. pool    — ``[18 pool]``: ``profile run --workers 2`` over phase 13's
+             corpus in one CLI process, its two spawn workers taking turns
+             on the card (each task's measurement holds it); the card shim
+             ``card_shim`` in the workers logs each task's seconds on the
+             card and kernel launches.  Its rows are the dry run's points,
+             the report says workers 2 and nothing failed, and its points
+             agree with phase 12's DB (median relative difference <= 10 %),
+             printed beside phase 13's serial shards' with both runs' wall
+             and executing seconds, and no two workers' measurements
+             overlap on the card.  ``[18 faults]``: llama3-8b's plan at
+             full width in two runs side by side: ``profile run --workers 2
+             --task-timeout T`` (T three times 18a's longest task) through
+             the shim's faults — a crash, a hang and a device-side assert
+             that leaves the worker's CUDA context unusable, once each, an
+             allocation of twice the card's memory and NaN rows on every
+             attempt — and ``--kill-run`` of the same plan, SIGKILLed
+             after 6 commits, then resumed by ``profile run``.  The one-shot faults heal, exactly
+             the OOM and garbage tasks are quarantined, no healthy task
+             times out, the poisoned worker leaves once, a worker measures
+             on after its OOM, the healthy points agree with phase 12's
+             (median <= 10 %), the resume measures exactly the tasks the
+             killed run left, no two processes' measurements overlap on
+             the card, and the decode kernel ran in the workers (a
+             prefill ``self_attn`` point runs the materialized chunk-against-
+             cache attention, as the reference's does, not the flash
+             kernel).  Files under build/chip/pool/.
 A JSON line then lists every kernel with its launches on the main paths,
 its largest error against its plain version, and its times.
 ``python3 chip_smoke.py --profile-simulate`` runs phase 12 alone,
 ``python3 chip_smoke.py --cli MODULE ARGS...`` runs one CLI step of phase 13,
 ``python3 chip_smoke.py --mesh-serving`` runs phase 16's mesh serving,
+``python3 chip_smoke.py --phase18`` runs phases 1, 2, 12, 13 and 18,
+``python3 chip_smoke.py --kill-run ARGS --kill-after N`` runs phase 18's
+killed ``profile run ARGS``,
 and ``python3 chip_smoke.py --phase15`` runs phases 1-3 and 15 (its plan on
 the merged DB that phase 13 of a whole run left in build/; it exits 1
 without one).
@@ -278,6 +307,7 @@ smoke configuration, where the kernel wrappers take their plain versions.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import math
@@ -285,6 +315,7 @@ import os
 import re
 import runpy
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -309,6 +340,7 @@ from repro_torch.core.runner import trace_model  # noqa: E402
 from repro_torch.core.backends import (cpu_wallclock, cuda_events,  # noqa: E402
                                        launch_floor)
 from repro_torch.core.database import LatencyDB  # noqa: E402
+from repro_torch.core.journal import read_journal_state  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -366,9 +398,10 @@ PREFILL_POINT = (256, 1, 2048)                                 # (toks, reqs, ct
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
 TRAIN_STEPS, MICROBATCHES, LEARNING_RATE = 6, 2, 3e-4
 #: phase 17: (microbatches, rows a microbatch, tokens a row, steps) of the
-#: hybrid (under AdamW, then Adafactor) and of the dense model (Adafactor)
+#: hybrid (under AdamW, then Adafactor) and of the dense model (Adafactor);
+#: two hybrid steps an optimizer (≈ 13 s each) keep the script in its time
 TRAIN_HYBRID, TRAIN_DENSE = "hymba-1.5b", "yi-9b"
-HYBRID_RUN, DENSE_RUN = (4, 1, 2048, 3), (1, 4, 1024, 3)
+HYBRID_RUN, DENSE_RUN = (4, 1, 2048, 2), (1, 4, 1024, 3)
 PHASE17_LIMIT_S = 240.0
 #: how much larger than the plain attention's a gradient's relative error
 #: to float32 may be through the kernels (FlashAttention's tests allow 2),
@@ -449,16 +482,38 @@ AGREE_LIMIT = 0.10
 #: every shape, mesh) run one after the other in one child process per
 #: group, the groups side by side: llama3-8b at every shape on both meshes,
 #: every other assigned architecture at decode_32k on the single-pod mesh
+#: (three or two a group: each cell is a process of its own, ~20 s of it
+#: start-up, and the longest group sets the phase's time)
 DRYRUN_MAIN = "llama3-8b"
-DRYRUN_GROUPS = [
-    [(DRYRUN_MAIN, None, "both")],
-    [(a, "decode_32k", "single") for a in ASSIGNED_ARCHS[:5]],
-    [(a, "decode_32k", "single") for a in ASSIGNED_ARCHS[5:]]]
+DRYRUN_GROUPS = [[(DRYRUN_MAIN, None, "both")]] + [
+    [(a, "decode_32k", "single") for a in ASSIGNED_ARCHS[i:j]]
+    for i, j in ((0, 3), (3, 6), (6, 8), (8, 10))]
 DRYRUN_LEFT_OUT = ("every other architecture's train_4k, prefill_32k and "
                    "long_500k, and its decode_32k on the multi-pod mesh")
 PHASE16_LIMIT_S = 180.0
 PHASE16_DB = CLI_DIR.parent / "phase16.sqlite"
 COMM_TP, COMM_TP_OPS = (1, 2, 4, 8), "(all-reduce, all-gather, reduce-scatter)"
+
+#: phase 18: the pooled run's files and workers; the card shim (in the
+#: workers), its faults (mode -> the op whose one task in llama3-8b's plan it
+#: hits) and those that fire once (the others on every attempt), the
+#: retries, the commits after which the kill run dies, and the task deadline:
+#: a multiple of 18a's longest task, at least POOL_TIMEOUT_MIN_S
+POOL_DIR = CLI_DIR.parent / "pool"
+POOL_WORKERS, POOL_RETRIES = 2, 2
+SHIM = "chip_smoke:card_shim"
+POOL_FAULTS = {"crash": "pow", "hang": "rsqrt", "poison": "silu", "oom": "mean",
+               "garbage": "index"}
+ONE_SHOT = ("crash", "hang", "poison")
+FAULT_MODEL = "llama3-8b"
+KILL_AFTER = 6
+POOL_TIMEOUT_PER_LONGEST, POOL_TIMEOUT_MIN_S = 3.0, 10.0
+PLAN_TAG = "kill-run plan: "
+#: the error an allocation beyond the device's memory raises, by device
+OOM_REASON = {"cuda": "OutOfMemoryError", "cpu": "can't allocate memory"}
+#: what a card worker says on its way out when a task left its CUDA
+#: context unusable (``repro_torch.core.plan._plan_worker_run``)
+UNUSABLE = "the CUDA context is unusable, the worker exits"
 
 #: the libraries whose bf16 path runs on the tensor cores, and the SASS
 #: instructions of which one must appear: wgmma (HGMMA), or mma.sync (HMMA)
@@ -2658,41 +2713,61 @@ def cli_main(argv) -> int:
     return code
 
 
-def _cli(step: str, module: str, *args, cwd: Path) -> dict:
+def _cli_start(*argv, cwd: Path, env: dict = None) -> tuple:
+    """Starts this script with ``argv`` in a fresh process (``--cli MODULE
+    ARGS...`` for one CLI step); returns (process, start time)."""
+    return (subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              *map(str, argv)], cwd=cwd, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def _cli_wait(step: str, started: tuple, timeout: float = 900) -> dict:
+    """Waits for a step ``_cli_start`` started; returns its exit code,
+    output, wall seconds and kernel launches."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    tagged = [line for line in stderr.splitlines() if line.startswith(LAUNCHES_TAG)]
+    if len(tagged) != 1:
+        print(stdout[-4000:] + stderr[-8000:], file=sys.stderr)
+        raise RuntimeError(f"CLI step {step!r} reported no kernel launches "
+                           f"(exit code {proc.returncode})")
+    return {"rc": proc.returncode, "stdout": stdout, "stderr": stderr,
+            "wall_s": wall, "counts": json.loads(tagged[0][len(LAUNCHES_TAG):])}
+
+
+def _cli(step: str, module: str, *args, cwd: Path, env: dict = None) -> dict:
     """Runs one CLI step in a fresh process (``cli_main``); returns its exit
     code, output, wall seconds and kernel launches."""
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cli",
-                          module, *map(str, args)], cwd=cwd, capture_output=True,
-                         text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    tagged = [line for line in run.stderr.splitlines()
-              if line.startswith(LAUNCHES_TAG)]
-    if len(tagged) != 1:
-        print(run.stdout[-4000:] + run.stderr[-8000:], file=sys.stderr)
-        raise RuntimeError(f"phase 13 step {step!r} reported no kernel launches "
-                           f"(exit code {run.returncode})")
-    return {"rc": run.returncode, "stdout": run.stdout, "stderr": run.stderr,
-            "wall_s": wall, "counts": json.loads(tagged[0][len(LAUNCHES_TAG):])}
+    return _cli_wait(step, _cli_start("--cli", module, *args, cwd=cwd, env=env))
 
 
 def _ok(res: dict, step: str, rc: int = 0) -> dict:
     if res["rc"] != rc:
         print(res["stdout"][-4000:] + res["stderr"][-8000:], file=sys.stderr)
-    _require(res["rc"] == rc, f"phase 13 step {step!r} exits with {rc} "
+    _require(res["rc"] == rc, f"CLI step {step!r} exits with {rc} "
              f"(got {res['rc']})")
     return res
 
 
-def _agreement(path: Path, other: Path, hardware: str) -> dict:
+def _agreement(path: Path, other: Path, hardware: str, shift: dict = None) -> dict:
     """The relative differences |a - b| / b of the points that two DBs,
     filled by different processes, both hold, and the point that differs
-    most: its op, (phase, toks, reqs, ctx) and both latencies in µs."""
+    most: its op, (phase, toks, reqs, ctx) and both latencies in µs.
+    ``shift`` (signature -> µs) is added to ``path``'s points first."""
+    shift = shift or {}
     with LatencyDB(str(path)) as a, LatencyDB(str(other)) as b:
         diffs = []
         for sig in set(a.measured_hashes(hardware)) & set(b.measured_hashes(hardware)):
             pa, pb = a.measurement_map(sig, hardware), b.measurement_map(sig, hardware)
             op = a.signature(sig)[0]
+            pa = {k: v + shift.get(sig, 0.0) for k, v in pa.items()}
             diffs += [(abs(pa[k] - pb[k]) / pb[k], op, list(k), pa[k], pb[k])
                       for k in pa.keys() & pb.keys()]
     _require(diffs, f"{path.name} and {other.name} hold common points")
@@ -2854,6 +2929,383 @@ def phase_cli(workdir: Path, cli_args: list, device, *, models, full: bool,
             "execute_s": execute, "sweep": summary, "compare": agg,
             "recommendation": rec, "decode_launches": launches[0],
             "flash_launches": launches[1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the pooled profile run and its faults
+# ---------------------------------------------------------------------------
+
+def _shim_log(record: dict) -> None:
+    """Appends one record to this process's file under ``$CHIP_SHIM_LOG``."""
+    with open(Path(os.environ["CHIP_SHIM_LOG"]) / f"{os.getpid()}.jsonl", "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+def _fires(mode: str, sig: str) -> bool:
+    """A fault of ``ONE_SHOT`` fires on the first attempt only (it claims a
+    marker file under ``$CHIP_FAULT_STATE``, which outlives the worker);
+    the others fire on every attempt."""
+    if mode not in ONE_SHOT:
+        return True
+    try:
+        os.close(os.open(Path(os.environ["CHIP_FAULT_STATE"]) / f"{mode}-{sig}",
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        return False
+    return True
+
+
+def card_shim(prof, payload, cfg, backend):
+    """Phase 18's ``REPRO_MEASURE_SHIM`` (``chip_smoke:card_shim``), run by
+    the pool's workers inside their turn on the card.  ``$CHIP_FAULTS``
+    (``mode:op,...``) makes the task of each named op fault: ``crash`` (the
+    worker exits), ``hang`` (it sleeps ``$CHIP_FAULT_HANG_S``) and
+    ``poison`` (a device-side assert, which leaves the CUDA context
+    unusable; on the CPU an index error) on the first attempt, ``oom`` (an
+    allocation of twice the device's memory) and ``garbage`` (NaN rows) on
+    every attempt.  Every call that measures logs its op, its seconds, its
+    span on the monotonic clock (``t0``, ``t1``: one clock for every
+    process of the machine), its kernel launches and its process's launch
+    floor under ``$CHIP_SHIM_LOG``."""
+    module = payload[0] == "module"
+    sig, op = (payload[3], payload[1]) if module else (payload[1], payload[2].kind)
+    faults = {o: m for m, o in (f.split(":") for f in
+                                os.environ.get("CHIP_FAULTS", "").split(",") if f)}
+    mode, dev = faults.get(op), prof.device
+    if mode and _fires(mode, sig):
+        _shim_log({"fault": mode, "op": op, "sig": sig})
+        if mode == "crash":
+            os._exit(17)
+        elif mode == "hang":
+            time.sleep(float(os.environ["CHIP_FAULT_HANG_S"]))
+        elif mode == "poison":
+            x = torch.zeros(4, device=dev)
+            x[torch.full((1,), 1 << 20, device=dev)] += 1
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        elif mode == "oom":
+            torch.empty(2 * torch.cuda.get_device_properties(dev).total_memory
+                        if dev.type == "cuda" else 1 << 50,
+                        dtype=torch.uint8, device=dev)
+        elif mode == "garbage":
+            return [(sig, prof.hardware, "prefill", 8, 1, 0, prof.oracle,
+                     float("nan"))]
+    t0, before = time.monotonic(), _counts()
+    rows = prof.measure_payload_rows(payload, cfg, backend)
+    t1 = time.monotonic()
+    floor = (launch_floor(torch.device("cuda", dev.index if dev.index is not None
+                                       else torch.cuda.current_device()))
+             if dev.type == "cuda" else None)
+    _shim_log({"op": op, "sig": sig, "s": t1 - t0, "t0": t0, "t1": t1,
+               "launches": [a - b for a, b in zip(_counts(), before)],
+               "floor_us": floor and floor * 1e6})
+    return rows
+
+
+def _shim_env(log: Path, **extra) -> dict:
+    log.mkdir(parents=True, exist_ok=True)
+    return {**os.environ, "REPRO_MEASURE_SHIM": SHIM, "CHIP_SHIM_LOG": str(log),
+            **extra}
+
+
+def _shim_records(log: Path) -> list:
+    """The card shim's records under ``log``, each with its worker's pid, in
+    each worker's order."""
+    return [dict(json.loads(line), pid=int(f.stem)) for f in sorted(log.glob("*.jsonl"))
+            for line in f.read_text().splitlines()]
+
+
+def _worker_launches(records) -> list:
+    """(decode, flash forward, flash backward, scan) launches in the workers."""
+    return [sum(r["launches"][i] for r in records if "launches" in r)
+            for i in range(4)]
+
+
+def _measured_after(records, mode: str) -> list:
+    """The tasks a worker measured after the fault ``mode`` fired in it."""
+    out = []
+    for pid in {r["pid"] for r in records if r.get("fault") == mode}:
+        own = [r for r in records if r["pid"] == pid]
+        first = next(i for i, r in enumerate(own) if r.get("fault") == mode)
+        out += [r for r in own[first:] if "s" in r]
+    return out
+
+
+def _overlaps(records) -> list:
+    """The pairs of measurements by different processes whose spans on the
+    card overlap: (op, pid, op, pid, seconds of overlap).  With the card
+    lock held around each task's measurement there are none."""
+    spans = sorted((r["t0"], r["t1"], r["pid"], r["op"]) for r in records if "t0" in r)
+    out = []
+    for i, (a0, a1, apid, aop) in enumerate(spans):
+        for b0, b1, bpid, bop in spans[i + 1:]:
+            if b0 >= a1:
+                break
+            if bpid != apid:
+                out.append((aop, apid, bop, bpid, min(a1, b1) - b0))
+    return out
+
+
+def kill_run_main(argv) -> int:
+    """``--kill-run ARGS --kill-after N``: ``profile run ARGS``, its plan
+    built as the CLI builds it and executed through ``ProfileStore.execute``,
+    which SIGKILLs its own process once N tasks have committed (their rows
+    and journal records durable), as a machine that dies mid-corpus.  Prints
+    the plan's id and task count first."""
+    from repro_torch.profile.__main__ import _build, build_parser
+    extra = argparse.ArgumentParser(add_help=False)
+    extra.add_argument("--kill-after", type=int, required=True)
+    kill, rest = extra.parse_known_args(argv)
+    args = build_parser().parse_args(["run", *rest])
+    store, plan = _build(args)
+    print(f"{PLAN_TAG}{plan.plan_id} {len(plan.todo)}", flush=True)
+
+    def progress(task, i, n):
+        if i >= kill.kill_after:
+            os.kill(os.getpid(), signal.SIGKILL)
+    with store:
+        store.execute(plan, workers=args.workers, checkpoint=args.checkpoint,
+                      progress=progress)
+    return 0            # only reached when the plan has N tasks or fewer
+
+
+def _deferred(checks: list):
+    """A ``_require`` that records (ok, what) in ``checks`` for later, so a
+    phase prints all it measured before any check fails."""
+    return lambda ok, what: checks.append((bool(ok), what))
+
+
+def phase_pool(workdir: Path, cli_args: list, device, *, models, full: bool,
+               compare_db: Path, serial: dict) -> dict:
+    """Phase 18a: ``profile run --workers 2`` over phase 13's corpus in one
+    CLI process, its workers measuring through the card shim with no fault
+    (it logs each task's seconds on the card and kernel launches).  Its rows
+    are the dry run's points, no task fails, and its points agree with
+    ``compare_db``'s (phase 12's) as phase 13's serial shards do
+    (``serial``: phase 13's result)."""
+    checks = []
+    check = _deferred(checks)
+    if workdir.exists():
+        shutil.rmtree(workdir)
+    workdir.mkdir(parents=True)
+    corpus = ["--models", ",".join(models), "--backends", PROFILE_BACKEND,
+              "--sweep", "quick", *(["--full"] if full else []), *cli_args]
+    log = workdir / "log-pool"
+    res = _cli("pool", "profile", "run", *corpus, "--db", "pool.sqlite",
+               "--workers", POOL_WORKERS, "--json", "pool.json", cwd=workdir,
+               env=_shim_env(log))
+    _ok(res, "pool")
+    report = json.loads((workdir / "pool.json").read_text())
+    dry, hardware = serial["dry"], serial["dry"]["hardware"]
+    with LatencyDB(str(workdir / "pool.sqlite")) as db:
+        rows = db.stats()["measurements"]
+    agree, shards = _agreement(workdir / "pool.sqlite", compare_db, hardware), serial["agreement"]
+    records = _shim_records(log)
+    longest, *_ = slowest = sorted(records, key=lambda r: -r["s"])[:3]
+    launches = _worker_launches(records)
+    overlaps = _overlaps(records)
+    # each process subtracts its own launch floor from every point: the
+    # pooled points again with this process's (phase 12's) floor instead
+    floors = {r["pid"]: r["floor_us"] for r in records if r.get("floor_us")}
+    own_floor = launch_floor(device) * 1e6 if device.type == "cuda" else None
+    rebased = (_agreement(workdir / "pool.sqlite", compare_db, hardware,
+                          {r["sig"]: floors[r["pid"]] - own_floor
+                           for r in records if r["pid"] in floors})
+               if floors and own_floor else None)
+    serial_s = serial["execute_s"]["shard 0"] + serial["execute_s"]["shard 1"]
+    serial_wall = serial["wall_s"]["shard 0"] + serial["wall_s"]["shard 1"]
+    print(f"[18 pool] profile run --workers {POOL_WORKERS} of {', '.join(models)}: "
+          f"{report['measured']} tasks measured by {len({r['pid'] for r in records})} "
+          f"workers, {rows} rows (the dry run's {dry['plan_points']} points), "
+          f"{report['quarantined']} quarantined, workers {report.get('workers')}; "
+          f"{_card(device)}")
+    print(f"  points against {compare_db.name}'s: {agree['points']} in common, "
+          f"relative difference median {100 * agree['median']:.3f} %, max "
+          f"{100 * agree['max']:.3f} % ({agree['worst'][0]} at {agree['worst'][1]}); "
+          f"phase 13's serial shards: median {100 * shards['median']:.3f} %, max "
+          f"{100 * shards['max']:.3f} %")
+    print(f"  executing {report['elapsed_s']:.2f} s, {res['wall_s']:.1f} s wall; the "
+          f"serial shards {serial_s:.2f} s executing ({serial_s and report['elapsed_s'] / serial_s:.3f}x), "
+          f"{serial_wall:.1f} s wall; the longest tasks held the card "
+          + ", ".join(f"{r['s']:.3f} s ({r['op']})" for r in slowest)
+          + f"; kernel launches in the workers (decode, flash fwd, flash bwd, "
+          f"scan): {tuple(launches)}")
+    print(f"  launch floors: the workers' "
+          + ", ".join(f"{v:.3f}" for v in floors.values())
+          + (f" us, this process's (phase 12's) {own_floor:.3f} us; the pooled points "
+             f"with phase 12's floor: median {100 * rebased['median']:.3f} %, max "
+             f"{100 * rebased['max']:.3f} %" if rebased else " (none)")
+          + f"; measurements of two workers overlapping on the card: {len(overlaps)}")
+    check(device.type != "cuda" or not overlaps,
+          f"no two workers' measurements overlap on the card "
+          f"({overlaps[:3]})")
+    check(report.get("workers") == POOL_WORKERS and report["quarantined"] == 0
+          and report["retried"] == 0,
+          f"the pooled run reports workers {POOL_WORKERS}, failed 0 ({report})")
+    check(rows == report["rows_written"] == dry["plan_points"],
+          f"the pooled rows {rows} == the dry run's points {dry['plan_points']}")
+    check(agree["median"] <= AGREE_LIMIT,
+          f"the pooled points agree with {compare_db.name}'s: median relative "
+          f"difference {agree['median']:.4f} <= {AGREE_LIMIT}")
+    check(device.type != "cuda" or launches[0] > 0,
+          f"the decode kernel ran in the pool's workers ({launches})")
+    return {"checks": checks, "agreement": agree, "serial_agreement": shards,
+            "rows": rows,
+            "execute_s": report["elapsed_s"], "wall_s": res["wall_s"],
+            "serial_execute_s": serial_s, "serial_wall_s": serial_wall,
+            "longest_s": longest["s"], "longest_op": longest["op"],
+            "workers": report.get("workers"), "worker_launches": launches,
+            "worker_floors_us": list(floors.values()), "own_floor_us": own_floor,
+            "rebased_agreement": rebased, "overlaps": len(overlaps),
+            "decode_launches": launches[0] + res["counts"][0],
+            "flash_launches": launches[1] + res["counts"][1]}
+
+
+def phase_pool_faults(workdir: Path, cli_args: list, device, *, model: str,
+                      full: bool, compare_db: Path, hardware: str,
+                      longest_s: float) -> dict:
+    """Phase 18b, two runs of ``model``'s plan side by side on the card,
+    taking turns on it: ``profile run --workers 2 --task-timeout T`` (T
+    ``POOL_TIMEOUT_PER_LONGEST`` times 18a's longest task) with the card
+    shim's faults, and a run of the same plan (``--kill-run``) SIGKILLed
+    after ``KILL_AFTER`` commits, then its resume.  The one-shot faults heal, exactly the
+    every-attempt tasks are quarantined, no healthy task times out or is
+    quarantined, the healthy points agree with ``compare_db``'s, the
+    resume measures exactly the tasks the killed run left, and no two
+    processes' measurements overlap on the card."""
+    checks = []
+    check = _deferred(checks)
+    timeout = max(POOL_TIMEOUT_MIN_S, POOL_TIMEOUT_PER_LONGEST * longest_s)
+    corpus = ["--models", model, "--backends", PROFILE_BACKEND, "--sweep", "quick",
+              *(["--full"] if full else []), *cli_args]
+    state = workdir / "fault-state"
+    state.mkdir()
+    flog, klog = workdir / "log-faults", workdir / "log-kill"
+    t0 = time.perf_counter()
+    faults = _cli_start(
+        "--cli", "profile", "run", *corpus, "--db", "faults.sqlite", "--workers",
+        POOL_WORKERS, "--task-timeout", f"{timeout:.1f}", "--max-retries",
+        POOL_RETRIES, "--json", "faults.json", cwd=workdir,
+        env=_shim_env(flog, CHIP_FAULTS=",".join(f"{m}:{o}" for m, o in POOL_FAULTS.items()),
+                      CHIP_FAULT_STATE=str(state), CHIP_FAULT_HANG_S=str(10 * timeout)))
+    killed, k0 = _cli_start("--kill-run", *corpus, "--db", "kill.sqlite",
+                            "--checkpoint", "kill.journal", "--kill-after",
+                            KILL_AFTER, "--workers", POOL_WORKERS, cwd=workdir,
+                            env=_shim_env(klog))
+    kout, kerr = killed.communicate(timeout=600)
+    kill_wall = time.perf_counter() - k0
+    if killed.returncode != -signal.SIGKILL:
+        print(kout[-4000:] + kerr[-8000:], file=sys.stderr)
+    _require(killed.returncode == -signal.SIGKILL,
+             f"the kill run dies by SIGKILL (exit {killed.returncode})")
+    (plan_id, kill_tasks), = [line[len(PLAN_TAG):].split() for line in
+                              kout.splitlines() if line.startswith(PLAN_TAG)]
+    kill_tasks = int(kill_tasks)
+    journaled = read_journal_state(str(workdir / "kill.journal"), plan_id)
+    resumed = _ok(_cli("resume", "profile", "run", *corpus, "--db", "kill.sqlite",
+                       "--checkpoint", "kill.journal", "--workers", POOL_WORKERS,
+                       "--json", "-", cwd=workdir, env=_shim_env(klog)), "resume")
+    resume = json.loads(resumed["stdout"])
+    fres = _cli_wait("faults", faults)
+    wall = time.perf_counter() - t0
+    frep = json.loads((workdir / "faults.json").read_text())
+    n_tasks = frep["coverage"]["plan_tasks"]
+    records = _shim_records(flog)
+    fired = {m: [r for r in records if r.get("fault") == m] for m in POOL_FAULTS}
+    sigs = {m: {r["sig"] for r in rs} for m, rs in fired.items()}
+    every = [m for m in POOL_FAULTS if m not in ONE_SHOT]
+    quarantined = {tid.split(":", 1)[1]: reason for tid, reason in frep["quarantine"]}
+    with LatencyDB(str(workdir / "faults.sqlite")) as db:
+        measured = set(db.measured_hashes(hardware))
+    after_oom = _measured_after(records, "oom")
+    unusable = fres["stderr"].count(UNUSABLE)
+    agree = _agreement(workdir / "faults.sqlite", compare_db, hardware)
+    launches = _worker_launches(records + _shim_records(klog))
+    overlaps = _overlaps(records + _shim_records(klog))
+    print(f"[18 faults] {model}: {n_tasks} tasks, --workers {POOL_WORKERS} "
+          f"--task-timeout {timeout:.1f} (18a's longest task x "
+          f"{POOL_TIMEOUT_PER_LONGEST:g}); faults fired: "
+          + ", ".join(f"{m} {len(fired[m])}x on {POOL_FAULTS[m]}" for m in POOL_FAULTS)
+          + f"; report: measured {frep['measured']}, retried {frep['retried']}, "
+          f"timed out {frep['timed_out']}, quarantined {frep['quarantined']} ("
+          + "; ".join(f"{s[:12]}: {r[:60]}" for s, r in quarantined.items())
+          + f"); workers that left an unusable context: {unusable}; {_card(device)}")
+    print(f"  the healthy points against {compare_db.name}'s: {agree['points']} in "
+          f"common, median {100 * agree['median']:.3f} %, max {100 * agree['max']:.3f} %; "
+          f"tasks measured after an OOM in the same worker: {len(after_oom)}")
+    print(f"  kill run of the same plan: SIGKILL after "
+          f"{len(journaled.done)} commits (journal), "
+          f"{kill_wall:.1f} s wall; resume: {resume['satisfied']} satisfied by the DB, "
+          f"measured {resume['measured']} of {kill_tasks}, {resumed['wall_s']:.1f} s wall; "
+          f"fault run {fres['wall_s']:.1f} s wall ({frep['elapsed_s']:.2f} s executing); "
+          f"18b {wall:.1f} s; kernel launches in the workers (decode, flash fwd, "
+          f"flash bwd, scan): {tuple(launches)}; measurements of two processes "
+          f"overlapping on the card: {len(overlaps)}")
+    check(fres["rc"] == 1, f"the fault run exits 1, as a run that quarantines "
+          f"does ({fres['rc']}): {fres['stderr'][-2000:]}")
+    check(all(len(fired[m]) == 1 for m in ONE_SHOT)
+          and all(len(fired[m]) == POOL_RETRIES + 1 and len(sigs[m]) == 1
+                  for m in every),
+          f"each one-shot fault fired once and each other on every attempt "
+          f"of one task ({ {m: len(r) for m, r in fired.items()} })")
+    check(all(sigs[m] <= measured for m in ONE_SHOT),
+          "the crashed, hung and poisoned tasks healed and were measured")
+    check(set(quarantined) == set().union(*(sigs[m] for m in every))
+          and all(OOM_REASON[device.type] in quarantined.get(sig, "")
+                  for sig in sigs["oom"])
+          and all("invalid" in quarantined.get(sig, "") for sig in sigs["garbage"]),
+          f"exactly the OOM and garbage tasks are quarantined ({quarantined})")
+    check(frep["timed_out"] == 1 and frep["measured"] == n_tasks - len(every)
+          and frep["retried"] == len(ONE_SHOT) + POOL_RETRIES * len(every),
+          "no healthy task timed out, failed or was retried (timed out "
+          f"{frep['timed_out']}, retried {frep['retried']}, measured "
+          f"{frep['measured']} of {n_tasks})")
+    check(device.type != "cuda" or unusable == 1,
+          f"the poisoned worker left once ({unusable})")
+    check(after_oom, "a worker measured tasks after its OOM")
+    check(agree["median"] <= AGREE_LIMIT,
+          f"the fault run's healthy points agree with {compare_db.name}'s: "
+          f"median {agree['median']:.4f} <= {AGREE_LIMIT}")
+    check(len(journaled.done) == KILL_AFTER and not journaled.quarantined
+          and resume["plan_id"] == plan_id and resume["satisfied"] == KILL_AFTER
+          and resume["measured"] == kill_tasks - KILL_AFTER
+          and resume["quarantined"] == 0,
+          f"the resume measures exactly the {kill_tasks - KILL_AFTER} tasks the "
+          f"killed run left ({resume['measured']}, satisfied {resume['satisfied']})")
+    check(device.type != "cuda" or launches[0] > 0,
+          f"the self_attn task ran the decode kernel in the workers ({launches})")
+    check(device.type != "cuda" or not overlaps,
+          f"no two processes' measurements overlap on the card ({overlaps[:3]})")
+    return {"checks": checks, "timeout_s": timeout,
+            "fired": {m: len(r) for m, r in fired.items()},
+            "retried": frep["retried"], "timed_out": frep["timed_out"],
+            "quarantined": sorted(quarantined), "agreement": agree,
+            "unusable_exits": unusable, "after_oom": len(after_oom),
+            "killed_after": len(journaled.done), "resume_measured": resume["measured"],
+            "overlaps": len(overlaps),
+            "wall_s": wall, "decode_launches": launches[0] + fres["counts"][0]
+            + resumed["counts"][0],
+            "flash_launches": launches[1] + fres["counts"][1] + resumed["counts"][1]}
+
+
+def phase18(device, cli_args: list, *, cli: dict, compare_db: Path, full: bool = True,
+            models=PROFILE_MODELS, workdir: Path = POOL_DIR) -> dict:
+    """Phase 18: the pooled profile run (18a) and its faults (18b) on the
+    card, against phase 12's DB (``compare_db``) and phase 13's result."""
+    t0 = time.perf_counter()
+    pool = phase_pool(workdir, cli_args, device, models=models, full=full,
+                      compare_db=compare_db, serial=cli)
+    faults = phase_pool_faults(workdir, cli_args, device, model=FAULT_MODEL,
+                               full=full, compare_db=compare_db,
+                               hardware=cli["dry"]["hardware"],
+                               longest_s=pool["longest_s"])
+    wall = time.perf_counter() - t0
+    print(f"[18 end] phase 18 in {wall:.1f} s")
+    for ok, what in pool["checks"] + faults["checks"]:
+        _require(ok, what)
+    return {"pool": pool, "faults": faults, "wall_s": wall,
+            "decode_launches": pool["decode_launches"] + faults["decode_launches"],
+            "flash_launches": pool["flash_launches"] + faults["flash_launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3407,7 +3859,8 @@ def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
                  train: dict, mamba_serving: dict, mamba_prefill: dict,
                  loop: dict, cli: dict, families: dict = None,
                  plan: dict = None, phase15: dict = None,
-                 phase16: dict = None, phase17: dict = None) -> dict:
+                 phase16: dict = None, phase17: dict = None,
+                 phase18: dict = None) -> dict:
     """Launches are counted on the main paths: decode while serving llama3
     (one run), granite-20b and phase 14's families (one run each), over
     phase 12's loop (olmoe-1b-7b's scoring included) and sweep scoring and
@@ -3419,10 +3872,13 @@ def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
     prefill and decode steps, the corpus plan's CLI process) add their
     decode and flash-forward launches, and so do phase 16's serving and
     prefill under the mesh and outside it (``phase16``), and phase 17's
-    train steps their flash forward and backward launches (``phase17``)."""
+    train steps their flash forward and backward launches (``phase17``);
+    phase 18's CLI processes and their pool workers add their decode and
+    flash-forward launches (``phase18``)."""
     families, plan = families or {}, plan or {}
     fam = list(families.values())
-    p15 = list((phase15 or {}).values()) + ([phase16] if phase16 else [])
+    p15 = (list((phase15 or {}).values()) + ([phase16] if phase16 else [])
+           + ([phase18] if phase18 else []))
     launches = {"decode_attention": serving["decode_launches"]
                 + granite["decode_launches"] + loop["decode_launches"]
                 + cli["decode_launches"] + plan.get("decode_launches", 0)
@@ -3470,6 +3926,21 @@ def phase15(frontends, device, base_db: Path) -> dict:
                                       base_db=base_db, db=PHASE15_DB)}
 
 
+def phase18_main() -> int:
+    """``--phase18``: phases 1, 2, 12 (its child), 13 and 18 alone."""
+    cfg, device = get_config("llama3-8b"), torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    phase_device(cfg, device)
+    phase_build(cfg, device)
+    phase_profile_simulate_process()
+    cli = phase_cli(CLI_DIR, [], device, models=PROFILE_MODELS, full=True,
+                    shared_variant=SHARED_VARIANT, compare_db=PHASE12_DB)
+    phase18(device, [], cli=cli, compare_db=PHASE12_DB)
+    print(f"[end] phases 1, 2, 12, 13 and 18 passed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def phase15_main() -> int:
     """``--phase15``: phases 1-3 (the kernels at every shape, phase 15's
     included) and phase 15 alone, its plan on phase 13's merged DB."""
@@ -3494,6 +3965,8 @@ def phase15_main() -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--cli"]:
         return cli_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--kill-run"]:
+        return kill_run_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3504,6 +3977,8 @@ def main() -> int:
         return phase15_main()
     if sys.argv[1:] == ["--mesh-serving"]:
         return mesh_serving_main()
+    if sys.argv[1:] == ["--phase18"]:
+        return phase18_main()
     cfg, mcfg = get_config("llama3-8b"), get_config(MAMBA)
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -3517,6 +3992,11 @@ def main() -> int:
                                 get_config(TRAIN_HYBRID), get_config(TRAIN_DENSE)))
     kernels.update(phase_scan(mcfg, device,
                               family_cfgs=[c for c in families if c.ssm_state]))
+    ends = []                   # (last phase, seconds since the start)
+
+    def end(phase: str):
+        ends.append(f"{phase} {time.perf_counter() - t0:.1f}")
+    end("3b")
     serving = phase_serving(cfg, device)
     prefill = phase_prefill(cfg, device)
     train = phase_train(cfg, device)
@@ -3528,21 +4008,31 @@ def main() -> int:
     phase_tracer([(get_config(n), get_smoke_config(n)) for n in ("llama3-8b", GRANITE)],
                  device)
     _release(device)
+    end("11")
     loop = phase_profile_simulate_process()
+    end("12")
     cli = phase_cli(CLI_DIR, [], device, models=PROFILE_MODELS, full=True,
                     shared_variant=SHARED_VARIANT, compare_db=PHASE12_DB)
+    end("13")
     served = {}
     for tag, fcfg in zip(("mla", "moe", "hybrid"), families):
         served[tag] = phase_family(fcfg, device, tag)
     plan = phase_family_plan([], device, models=PLAN_MODELS, full=True,
                              base_db=CLI_DIR / "merged.sqlite", db=PHASE14_DB)
+    end("14")
     p15 = phase15(frontends, device, CLI_DIR / "merged.sqlite")
+    end("15")
     p16 = phase16(device)
     _release(device)
+    end("16")
     p17 = phase17(device)
-    print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s")
+    _release(device)
+    end("17")
+    p18 = phase18(device, [], cli=cli, compare_db=PHASE12_DB)
+    print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s (each "
+          f"phase's end, s: {', '.join(ends)})")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill, loop, cli, served, plan, p15, p16, p17)
+                 mamba_prefill, loop, cli, served, plan, p15, p16, p17, p18)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

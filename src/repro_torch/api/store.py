@@ -182,7 +182,10 @@ class ProfileStore:
         resumes instead of restarting.  Execution is supervised: failed
         or hung (``task_timeout``) measurements retry up to
         ``max_retries`` times, then quarantine (or raise, with
-        ``fail_fast``) — see :func:`repro_torch.api.execute_plan`."""
+        ``fail_fast``) — see :func:`repro_torch.api.execute_plan`.  On a
+        card the workers take turns on it, and ``task_timeout`` counts
+        from the moment a task takes the card, after a wait for it of at
+        most 4 × ``workers`` × ``task_timeout``."""
         return execute_plan(self.db, plan, workers=workers,
                             checkpoint=checkpoint, progress=progress,
                             task_timeout=task_timeout,

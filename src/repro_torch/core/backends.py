@@ -16,7 +16,14 @@ Counterpart of ``repro.core.backends``:
   floor is the card's own.  A call that cannot be captured (a host
   sync, a data-dependent shape) raises; there is no eager fallback.  A
   kernel wrapper's launch counter moves on the warm-up calls and once at
-  capture, not on replays.  It runs on the card only.
+  capture, not on replays.  It runs on the card only, holding the card
+  (``card_lock``) for the whole measurement, launch floor included.
+* ``card_lock`` — one timer on a card at a time.  Two processes on one card
+  (no MPS) take turns on it, so a timed window could hold another process's
+  time slice.  Every process that measures on a card holds an exclusive
+  ``flock`` on ``build/locks/card-<uuid>.lock`` while it puts work on the
+  card for a measurement; the kernel drops the lock when its holder dies,
+  so a killed worker never leaves the card locked.
 * ``cpu_wallclock`` — host timing of one call on CPU tensors, for the CPU
   tests.
 * ``h100_analytical`` — the counterpart of the reference's
@@ -34,16 +41,72 @@ All return seconds.
 """
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import functools
+import os
 import time
-from typing import Any, Callable, Mapping, Sequence
+from pathlib import Path
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core.device import Device, resolve_device
+from repro_torch.kernels._build import BUILD_DIR
 from repro_torch.parallel.roofline import H100, peaks
+
+
+#: the card locks' directory: one file for each card, named by its UUID
+LOCK_DIR = BUILD_DIR / "locks"
+
+#: the locks this process holds: key -> (descriptor, depth)
+_HELD: Dict[str, Tuple[int, int]] = {}
+
+
+@contextlib.contextmanager
+def hold_card(key: str, lock_dir: Path = LOCK_DIR):
+    """Holds the card named ``key`` for this process: an exclusive
+    ``flock`` on ``lock_dir/card-<key>.lock``, waiting while another process
+    holds it.  Re-entrant within a process; the kernel releases it when the
+    process dies, however it dies."""
+    fd, depth = _HELD.get(key, (-1, 0))
+    if not depth:
+        lock_dir.mkdir(parents=True, exist_ok=True)
+        fd = os.open(lock_dir / f"card-{key}.lock", os.O_RDWR | os.O_CREAT,
+                     0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+        except BaseException:
+            os.close(fd)
+            raise
+    _HELD[key] = (fd, depth + 1)
+    try:
+        yield
+    finally:
+        if depth:
+            _HELD[key] = (fd, depth)
+        else:
+            del _HELD[key]
+            os.close(fd)            # the only descriptor: the lock goes
+
+
+@functools.lru_cache(maxsize=None)
+def card_key(device: torch.device) -> str:
+    """The UUID of the card ``device`` names (its index, else the current
+    one), the same in every process whatever ``CUDA_VISIBLE_DEVICES`` says."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
+def card_lock(device: Device):
+    """``hold_card`` of ``device``'s card; on the CPU a no-op."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return hold_card(card_key(dev))
 
 
 def _median(xs) -> float:
@@ -94,12 +157,13 @@ def _graph_times(fn: Callable, args: Sequence[Any], repeats: int, warmup: int,
 @functools.lru_cache(maxsize=None)
 def launch_floor(device: torch.device) -> float:
     """Median event-timed seconds of replaying a graph of one trivial
-    kernel on ``device``."""
-    x = torch.zeros(1, device=device)
+    kernel on ``device``, measured once a process with the card held."""
+    with card_lock(device):
+        x = torch.zeros(1, device=device)
 
-    def trivial():
-        x.add_(0)
-    return _median(_graph_times(trivial, (), 20, 3, device))
+        def trivial():
+            x.add_(0)
+        return _median(_graph_times(trivial, (), 20, 3, device))
 
 
 def cuda_events(fn: Callable, args: Sequence[Any], *, repeats: int = 20,
@@ -111,8 +175,9 @@ def cuda_events(fn: Callable, args: Sequence[Any], *, repeats: int = 20,
         raise ValueError(f"cuda_events times the card; got device {dev}")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    med = _median(_graph_times(fn, args, repeats, warmup, dev))
-    return max(med - launch_floor(dev), med * 0.05, 1e-8)
+    with card_lock(dev):
+        med = _median(_graph_times(fn, args, repeats, warmup, dev))
+        return max(med - launch_floor(dev), med * 0.05, 1e-8)
 
 
 def cpu_wallclock(fn: Callable, args: Sequence[Any], *, repeats: int = 5,

@@ -6,6 +6,18 @@ unless ``build_plan`` is given ``device="cpu"``), and its execution
 measures there; the device is not part of ``plan_id``.  The supervisor's spawn
 workers each open their own CUDA context.
 
+On a card, the workers share it in turn: each task's measurement holds the
+card (``core.backends.card_lock``), so no timed window overlaps another
+worker's work, and ``task_timeout`` runs from the moment a task takes the
+card (a wait for it of up to ``CARD_WAIT_TURNS`` × ``workers`` ×
+``task_timeout`` is not counted).  Host work — spawn, imports, the CUDA context, unpickling,
+validation, the pipe — still overlaps.  A task
+whose failure leaves the worker's CUDA context unusable (an illegal
+address, a device-side assert: every later call fails) ends its worker, so
+the supervisor counts a crash and retries the task in a fresh context; the
+serial path raises ``DeviceContextError`` instead of failing every task
+after it.
+
 The paper's headline result — 56.4% fewer profiling GPU-hours across the
 12-model corpus — comes from deciding *what not to measure* before
 running anything.  ``build_plan`` makes that decision a first-class,
@@ -31,22 +43,31 @@ restarting — or re-tripping.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import heapq
 import os
+import shutil
+import sys
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import (Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backends import card_lock
 from repro_torch.core.database import LatencyDB
 from repro_torch.core.device import Device
 from repro_torch.core.opset import entry_task_id
 from repro_torch.core.profiler import (DoolyProf, EntryReport, ProfileReport,
-                                       SweepConfig, validate_rows)
+                                       SweepConfig, validate_rows,
+                                       warm_process)
 from repro_torch.core.runner import ModelTrace, trace_model
 from repro_torch.core.signature import Signature
+from repro_torch.core.supervisor import SupervisedPool
 
 #: (model name, attention backend, tp) — one profiled configuration
 ModelKey = Tuple[str, str, int]
@@ -652,6 +673,122 @@ class PlanExecutionError(RuntimeError):
         self.reason = reason
 
 
+class DeviceContextError(PlanExecutionError):
+    """A task's failure left the CUDA context unusable; the serial path
+    stops, since every later task in this process would fail too."""
+
+    def __init__(self, task_id: str, reason: str):
+        RuntimeError.__init__(
+            self, f"task {task_id} left the CUDA context unusable ({reason}); "
+            "committed tasks stay journaled: resume in a fresh process")
+        self.task_id = task_id
+        self.reason = reason
+
+
+#: a card worker's exit code when a task left its CUDA context unusable
+POISONED_EXIT = 86
+
+#: how long a pool's task may wait for the card, in turns of every worker at
+#: its longest (``workers`` × ``task_timeout`` each): room for another run
+#: sharing the card and for ``flock``'s unordered wake-ups
+CARD_WAIT_TURNS = 4
+
+
+def _context_ok(device: torch.device) -> bool:
+    """Whether ``device`` still takes work after a task raised.  A sticky
+    CUDA error (an illegal address, a device-side assert) fails every later
+    call, this synchronize first; an out-of-memory error does not.  The CPU
+    has no such state."""
+    if device.type != "cuda":
+        return True
+    try:
+        torch.cuda.synchronize(device)
+    except RuntimeError:                        # torch.AcceleratorError too
+        return False
+    return True
+
+
+def _write_turn(path: str, task_id: str, state: str) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        f.write(f"{task_id} {state} {time.monotonic()!r}")
+    os.replace(tmp, path)
+
+
+def _read_turn(path: str) -> Optional[Tuple[str, str, float]]:
+    try:
+        with open(path) as f:
+            task_id, state, since = f.read().split()
+    except (OSError, ValueError):
+        return None
+    return task_id, state, float(since)
+
+
+@contextlib.contextmanager
+def _card_turn(lock, turns: Optional[str], task_id: str):
+    """One task's turn on the card, holding ``lock`` (its ``card_lock``).
+    In a pool on a card (``turns`` set) the worker records in
+    ``turns/<pid>`` that the task waits for the card, then since when it
+    holds it, for ``_CardPool``'s deadline."""
+    if turns is None:
+        with lock:
+            yield
+        return
+    mark = os.path.join(turns, str(os.getpid()))
+    _write_turn(mark, task_id, "waiting")
+    with lock:
+        _write_turn(mark, task_id, "holding")
+        yield
+
+
+class _CardPool(SupervisedPool):
+    """``execute_plan``'s supervised pool.  On a card (``card``) each worker
+    records its turns on the card (``_card_turn``) in a directory of the
+    pool's own, handed to the workers' setup after ``init``, and a task's
+    deadline runs from the moment it takes the card.  The supervisor starts
+    it at assignment, so at each expiry the pool reads the worker's turn
+    record: while the task waits for the card, the deadline moves on by
+    ``task_timeout`` at most, up to ``wait_limit`` after it began to wait
+    (by default ``CARD_WAIT_TURNS`` × ``workers`` × ``task_timeout``);
+    once it holds the card, to ``task_timeout`` after it took it.  So a
+    task that hangs holding the card is found within ``task_timeout`` of
+    its deadline, however long it waited first.  A task that has not yet
+    asked for the card keeps the supervisor's deadline, and one that waits
+    past ``wait_limit`` (a process that holds the card and does not let
+    go) times out as before.  Off a card it is the supervisor's pool."""
+
+    def __init__(self, setup, run, init, *, card: bool,
+                 wait_limit: Optional[float] = None, **kw):
+        self.turns = (tempfile.mkdtemp(prefix="repro-card-turns-") if card
+                      else None)
+        super().__init__(setup, run, (init, self.turns), **kw)
+        self.wait_limit = wait_limit
+        if wait_limit is None and self.task_timeout is not None:
+            self.wait_limit = (CARD_WAIT_TURNS * self.workers
+                               * self.task_timeout)
+
+    def close(self) -> None:
+        super().close()
+        if self.turns is not None:
+            shutil.rmtree(self.turns, ignore_errors=True)
+
+    def _reap_timeouts(self, now: float, sched) -> None:
+        for w in self._pool if self.turns is not None else ():
+            if (w.handled or w.task_id is None or w.deadline is None
+                    or now < w.deadline):
+                continue
+            turn = _read_turn(os.path.join(self.turns, str(w.proc.pid)))
+            if turn is None or turn[0] != w.task_id:
+                continue
+            _, state, since = turn
+            if state == "holding":
+                w.deadline = max(w.deadline, since + self.task_timeout)
+            elif now < since + self.wait_limit:
+                w.deadline = min(now + self.task_timeout,
+                                 since + self.wait_limit)
+        super()._reap_timeouts(now, sched)
+
+
 def _resolve_measure_fn(prof: DoolyProf,
                         measure_fn: Optional[Callable] = None) -> Callable:
     """The per-task measure callable: an explicit override, the env-var
@@ -677,21 +814,40 @@ def _plan_worker_setup(init):
     The config table ships each distinct ``ModelConfig`` once per worker
     at setup; per-task payloads then reference configs by name, so a
     10k-task plan does not re-pickle the same config 10k times.  Workers
-    never re-trace: the measure payloads were fully built at plan time
-    and each worker opens its own CUDA context on the plan's device."""
-    oracle, hardware, sweep, device, cfgs = init
+    never re-trace: the measure payloads were fully built at plan time.
+    On a card each worker opens its own CUDA context and warms itself on
+    ``warm`` (the schedule's first task: config name, backend, payload)
+    here, before its first task and its first turn on the card
+    (``warm_process``); ``turns`` is the directory of the card turns'
+    records (None off a card)."""
+    (oracle, hardware, sweep, device, cfgs, warm), turns = init
     prof = DoolyProf(LatencyDB(), oracle=oracle, hardware=hardware,
                      sweep=sweep, device=device)
-    return _resolve_measure_fn(prof), cfgs
+    cfg_name, backend, payload = warm
+    warm_process(prof, payload, cfgs[cfg_name], backend)
+    return _resolve_measure_fn(prof), cfgs, prof, turns
 
 
 def _plan_worker_run(state, payload) -> List[Tuple]:
-    """Supervised-worker task: measure one plan task and validate its
-    rows *in the worker*, so garbage measurements fail the attempt (and
-    consume retry budget) instead of reaching the coordinator."""
-    measure, cfgs = state
-    cfg_name, backend, tpayload = payload
-    return validate_rows(measure(tpayload, cfgs[cfg_name], backend))
+    """Supervised-worker task: measure one plan task, holding the card,
+    and validate its rows *in the worker*, so garbage measurements fail
+    the attempt (and consume retry budget) instead of reaching the
+    coordinator.  A failure that leaves the CUDA context unusable ends
+    the worker: the supervisor counts a crash and retries the task in a
+    fresh worker."""
+    measure, cfgs, prof, turns = state
+    task_id, cfg_name, backend, tpayload = payload
+    try:
+        with _card_turn(card_lock(prof.device), turns, task_id):
+            rows = measure(tpayload, cfgs[cfg_name], backend)
+    except Exception as e:                      # noqa: BLE001
+        if not _context_ok(prof.device):
+            print(f"task {task_id}: {type(e).__name__}: {e}; the CUDA "
+                  "context is unusable, the worker exits", file=sys.stderr,
+                  flush=True)
+            os._exit(POISONED_EXIT)
+        raise
+    return validate_rows(rows)
 
 
 def read_journal(path: str, plan: ProfilePlan) -> set:
@@ -736,10 +892,18 @@ def execute_plan(db: LatencyDB, plan: ProfilePlan, *, workers: int = 1,
     makespan is not tail-dominated) and streaming back in completion
     order; rows are bit-identical to a serial run either way.  Commit,
     journal-append, and ``progress`` failures are never swallowed — only
-    measurement failures are supervised."""
+    measurement failures are supervised.
+
+    On a card every task's measurement holds the card, so the workers
+    measure one at a time and overlap only their host work; there
+    ``task_timeout`` counts from the moment a task takes the card, after a
+    wait for it of at most ``CARD_WAIT_TURNS`` × ``workers`` ×
+    ``task_timeout``.  A
+    failure that leaves the CUDA context unusable replaces the worker (a
+    crash, retried); in the serial path it raises
+    :class:`DeviceContextError`, quarantining nothing."""
     t0 = time.perf_counter()
     from repro_torch.core.journal import PlanJournal
-    from repro_torch.core.supervisor import SupervisedPool
     prof = DoolyProf(db, oracle=plan.oracle, hardware=plan.hardware,
                      sweep=plan.sweep, device=plan.device)
     sig_by_hash = {s.hash: s for s in plan.signatures}
@@ -792,15 +956,17 @@ def execute_plan(db: LatencyDB, plan: ProfilePlan, *, workers: int = 1,
             cfg_table = {}
             for t in schedule:
                 cfg_table.setdefault(t.cfg.name, t.cfg)
-            pool = SupervisedPool(
-                _plan_worker_setup, _plan_worker_run,
-                (plan.oracle, plan.hardware, plan.sweep, plan.device,
-                 cfg_table),
-                workers=workers, task_timeout=task_timeout,
-                max_retries=max_retries, backoff_s=retry_backoff_s)
-            with pool:
+            with _CardPool(
+                    _plan_worker_setup, _plan_worker_run,
+                    (plan.oracle, plan.hardware, plan.sweep, plan.device,
+                     cfg_table, (schedule[0].cfg.name, schedule[0].backend,
+                                 schedule[0].payload)),
+                    card=prof.device.type == "cuda", workers=workers,
+                    task_timeout=task_timeout, max_retries=max_retries,
+                    backoff_s=retry_backoff_s) as pool:
                 for out in pool.run(
-                        [(t.task_id, (t.cfg.name, t.backend, t.payload))
+                        [(t.task_id, (t.task_id, t.cfg.name, t.backend,
+                                      t.payload))
                          for t in schedule]):
                     retried += out.attempts - 1
                     timed_out += out.n_timeouts
@@ -816,10 +982,16 @@ def execute_plan(db: LatencyDB, plan: ProfilePlan, *, workers: int = 1,
                 while True:
                     attempts += 1
                     try:
-                        rows = validate_rows(
-                            measure(task.payload, task.cfg, task.backend),
-                            where=f"task {task.task_id}")
+                        with card_lock(prof.device):
+                            rows = measure(task.payload, task.cfg,
+                                           task.backend)
+                        rows = validate_rows(rows,
+                                             where=f"task {task.task_id}")
                     except Exception as e:      # noqa: BLE001
+                        if not _context_ok(prof.device):
+                            raise DeviceContextError(
+                                task.task_id,
+                                f"{type(e).__name__}: {e}") from e
                         if attempts > max_retries:
                             _quarantine(task,
                                         f"{type(e).__name__}: {e}")

@@ -165,22 +165,46 @@ class ValidationPolicy:
                         f"{what} on re-measure")
         return val
 
+
+def warm_process(prof: "DoolyProf", payload: Tuple, cfg: ModelConfig,
+                 backend: str) -> None:
+    """On a card, once a worker before its first turn on the card: opens
+    the CUDA context and runs ``payload``'s measurement through the
+    analytical oracle on the meta device, nothing on the card.  The host
+    work a fresh process does on its first measurement (the context, the
+    modules the model path imports on first use, the cached contexts) then
+    overlaps the other workers' turns instead of lengthening its own."""
+    if prof.device.type != "cuda":
+        return
+    torch.cuda.synchronize(prof.device)      # creates the context
+    with LatencyDB() as db:
+        DoolyProf(db, oracle=ANALYTICAL, hardware=prof.hardware,
+                  sweep=prof.sweep, device=prof.device
+                  ).measure_payload_rows(payload, cfg, backend)
+
+
 def _measure_task_shard(payload) -> List[Tuple]:
     """ProcessPoolExecutor worker: measure a shard of pre-traced tasks —
     no model trace, no runnable-set resolution, no signature computation.
     Each task is either ("module", kind, window, sig_hash) — the execution
     context is rebuilt through the serving builders — or ("op", sig_hash,
     entry) with a detached OpEntry.  Returns
-    (sig_hash, phase, toks, reqs, ctx, latency_us) rows.
-    Module-level so it pickles under the spawn start method."""
+    (sig_hash, phase, toks, reqs, ctx, latency_us) rows.  On a card each
+    task holds it (``backends.card_lock``), so the shards' workers measure
+    in turn.  Module-level so it pickles under the spawn start method."""
     (cfg, backend, oracle, hardware, sweep, device, tasks) = payload
+    rows = []
     with LatencyDB() as db:
         prof = DoolyProf(db, oracle=oracle, hardware=hardware, sweep=sweep,
                          device=device)
-        return [(sig, phase, toks, reqs, ctx, lat_us)
-                for task in tasks
-                for (sig, _hw, phase, toks, reqs, ctx, _o, lat_us)
-                in prof.measure_payload_rows(task, cfg, backend)]
+        if tasks:
+            warm_process(prof, tasks[0], cfg, backend)
+        for task in tasks:
+            with oracles.card_lock(prof.device):
+                rows += [(sig, phase, toks, reqs, ctx, lat_us)
+                         for (sig, _hw, phase, toks, reqs, ctx, _o, lat_us)
+                         in prof.measure_payload_rows(task, cfg, backend)]
+    return rows
 
 
 @dataclass(frozen=True)

@@ -4,10 +4,12 @@
     PYTHONPATH=src python -m repro_torch.profile plan \
         --models llama3-8b,command-r7b,yi-9b --backends xla,chunked
 
-    # execute (measure) the same plan; journal progress; resume on rerun
+    # execute (measure) the same plan; journal progress; resume on rerun.
+    # N workers on one card share it in turn: each holds the card while it
+    # measures a task, so only their start-up and host work overlap
     PYTHONPATH=src python -m repro_torch.profile run \
         --models llama3-8b,command-r7b,yi-9b --backends xla,chunked \
-        --db corpus.sqlite --workers 4 --resume
+        --db corpus.sqlite --workers 2 --resume
 
 ``plan`` prints the coverage table (or JSON with ``--json``): per-model
 op counts, tasks already satisfied by the DB, tasks shared between
@@ -91,7 +93,12 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--task-timeout", type=float, default=None,
                             help="per-task wall-clock limit in seconds; "
                                  "a hung measurement is killed and "
-                                 "retried")
+                                 "retried.  On a card it counts from "
+                                 "the moment the task takes the card, "
+                                 "which the workers hold one at a time: "
+                                 "a wait for it of up to 4 x N workers x "
+                                 "this "
+                                 "is not counted")
             sp.add_argument("--max-retries", type=int, default=2,
                             help="attempts beyond the first before a "
                                  "task is quarantined (default 2)")
@@ -291,6 +298,7 @@ def main(argv=None) -> int:
                      "satisfied": rep.satisfied,
                      "rows_written": rep.rows_written,
                      "elapsed_s": rep.elapsed_s,
+                     "workers": rep.workers,
                      "checkpoint": rep.checkpoint,
                      "retried": rep.retried,
                      "timed_out": rep.timed_out,

@@ -149,6 +149,22 @@ PORT_EDITS = {
         ("                         oracle=args.oracle, sweep=_sweep(args.sweep))\n",
          "                         oracle=args.oracle, sweep=_sweep(args.sweep),\n"
          "                         device=args.device)\n", 1),
+        ("    # execute (measure) the same plan; journal progress; resume on rerun\n",
+         "    # execute (measure) the same plan; journal progress; resume on rerun.\n"
+         "    # N workers on one card share it in turn: each holds the card while it\n"
+         "    # measures a task, so only their start-up and host work overlap\n", 1),
+        ("        --db corpus.sqlite --workers 4 --resume\n",
+         "        --db corpus.sqlite --workers 2 --resume\n", 1),
+        ('                                 "retried")\n',
+         '                                 "retried.  On a card it counts from "\n'
+         '                                 "the moment the task takes the card, "\n'
+         '                                 "which the workers hold one at a time: "\n'
+         '                                 "a wait for it of up to 4 x N workers x "\n'
+         '                                 "this "\n'
+         '                                 "is not counted")\n', 1),
+        ('                     "elapsed_s": rep.elapsed_s,\n',
+         '                     "elapsed_s": rep.elapsed_s,\n'
+         '                     "workers": rep.workers,\n', 1),
     ],
 }
 
