@@ -112,8 +112,7 @@ meshes (the dry run), and checks them, one line per phase:
              runnable sets once on the card; no op may fall back to a module
              entry where the smoke config's CPU runnable set has it as an op.
 12. profile->simulate — Dooly's loop on llama3-8b and command-r7b at full
-             width, in a fresh process (its fingerprints come before any
-             cuda_events timing there): a plan over both models with a sweep
+             width, in a fresh process: a plan over both models with a sweep
              that brackets every point the engine asks for (prefill chunks
              of 8-256 tokens against ctx 2048, the decode batch of 8 at ctx
              2048), its coverage table, then its execution by cuda_events:
@@ -134,10 +133,17 @@ meshes (the dry run), and checks them, one line per phase:
              the sweep's DoolySim, bare and with phase 12's calibration
              terms, is scored against it by TTFT, TPOT and makespan MAPE
              beside the paper's bars; it fails on a failed scenario or a
-             MAPE that is not finite.  Last, olmoe-1b-7b (planned with the
-             first two, before any timing) is profiled into the same DB,
+             MAPE that is not finite.  Then olmoe-1b-7b is planned, as a
+             user adds a model to a DB filled earlier in the same process
+             (no fingerprint may fall back), profiled into the same DB,
              calibrated and scored the same way: its TTFT, TPOT and
-             makespan MAPE beside the paper's bars.
+             makespan MAPE beside the paper's bars.  For both scored models
+             each request's TTFT is split into the wait before the
+             iteration that admits it and the iterations that carry its
+             chunks, each part's error printed over the requests whose
+             admission kept or moved, beside the admitting iterations'
+             price by bucket.  Last, the llama3-8b + command-r7b plan is
+             built again: the same plan id, nothing left to measure.
 13. cli     — Dooly's configuration-search surface through its command
              lines, each step a fresh process that runs the CLI module as
              ``python -m repro_torch.<cli>`` does (launched through this
@@ -175,11 +181,13 @@ meshes (the dry run), and checks them, one line per phase:
              ``self_attn`` (window 1024) and ``mamba`` context points, two
              timings each by cuda_events; for hymba a 1024-token
              Model.prefill through the flash forward and the scan (float32
-             logits against the plain path, cosine >= 0.99).  ``[14 plan]``:
-             llama3-8b, command-r7b and the three profiled at full width in
-             one CLI process (quick sweep) on a copy of phase 13's merged
-             DB: tasks, shared tasks, tasks in the DB and measured, task
-             dedup, and the GPU-seconds spent and saved.
+             logits against the plain path, cosine >= 0.99).  ``[14 plan]``
+             (``phase_family_plan``: llama3-8b, command-r7b and the three
+             profiled in one CLI process on a copy of phase 13's merged DB,
+             its tasks, dedup and GPU-seconds) runs in the CPU tests; the
+             whole script leaves it to ``[15 plan]``, which profiles these
+             five models among the twelve in the same CLI on a copy of the
+             same DB.
 15. enc-dec and frontends — ``[15 vlm]``: internvl2-26b at full width and
              depth (48 layers, GQA 48/8/128) and ``[15 llama4]``:
              llama4-maverick-400b-a17b at full width with its depth cut to
@@ -266,12 +274,14 @@ meshes (the dry run), and checks them, one line per phase:
              corpus in one CLI process, its two spawn workers taking turns
              on the card (each task's measurement holds it); the card shim
              ``card_shim`` in the workers logs each task's seconds on the
-             card and kernel launches.  Its rows are the dry run's points,
-             the report says workers 2 and nothing failed, and its points
-             agree with phase 12's DB (median relative difference <= 10 %),
-             printed beside phase 13's serial shards' with both runs' wall
-             and executing seconds, and no two workers' measurements
-             overlap on the card.  ``[18 faults]``: llama3-8b's plan at
+             card, kernel launches and the SM clock read after it.  Its
+             rows are the dry run's points, the report says workers 2 and
+             nothing failed, every signature it measured is one phase 12's
+             DB holds, and its points agree with phase 12's DB (median
+             relative difference <= 10 %), printed beside phase 13's serial
+             shards' with both runs' wall and executing seconds and each
+             worker's medians by op kind and by turn, and no two workers'
+             measurements overlap on the card.  ``[18 faults]``: llama3-8b's plan at
              full width in two runs side by side: ``profile run --workers 2
              --task-timeout T`` (T three times 18a's longest task) through
              the shim's faults — a crash, a hang and a device-side assert
@@ -308,6 +318,7 @@ smoke configuration, where the kernel wrappers take their plain versions.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
 import json
 import math
@@ -475,7 +486,6 @@ LAUNCHES_TAG = "cli kernel launches: "
 #: phase 12's DB, against which phase 13 holds the points its CLI processes
 #: measure, and the most their median relative difference may be
 PHASE12_DB = CLI_DIR.parent / "phase12.sqlite"
-PHASE14_DB = CLI_DIR.parent / "phase14.sqlite"
 PHASE15_DB = CLI_DIR.parent / "phase15.sqlite"
 AGREE_LIMIT = 0.10
 #: phase 16: the dry run's cells, as groups of (arch, shape or None for
@@ -2185,21 +2195,45 @@ def _decode_ms(records) -> float:
     return float(np.median([r.model_s for r in records if not r.n_chunks])) * 1e3
 
 
+def _priced(sim, r) -> tuple:
+    """(kind, DoolySim's price in s) of one engine iteration record: decode
+    only, chunks only, or chunks with decodes."""
+    kind = ("decode" if not r.n_chunks else
+            "chunks" if not r.n_decodes else "mixed")
+    return kind, (sim.overhead_s + sim.chunk_overhead_s * r.n_chunks
+                  + sim.predict_record(r))
+
+
 def _iteration_errors(sim, records) -> dict:
     """The engine's iterations against DoolySim's price of each, by kind
     (decode only, chunks only, chunks with decodes) and, for chunk-only
-    iterations of one chunk, by bucket: count, median measured and
-    predicted ms, MAPE and mean signed error (%)."""
+    iterations of one chunk, by bucket (``_error_stats``)."""
     groups = {}
     for r in records:
-        kind = ("decode" if not r.n_chunks else
-                "chunks" if not r.n_decodes else "mixed")
-        pred = (sim.overhead_s + sim.chunk_overhead_s * r.n_chunks
-                + sim.predict_record(r))
+        kind, pred = _priced(sim, r)
         groups.setdefault(kind, []).append((r.model_s, pred))
         if kind == "chunks" and r.n_chunks == 1:
             groups.setdefault(f"chunk {bucket_chunk(r.chunks[0][0], SCHED.chunk_size)}",
                               []).append((r.model_s, pred))
+    return _error_stats(groups)
+
+
+def _admitting_errors(sim, records, admitting) -> dict:
+    """``_iteration_errors`` over the iterations that admitted a request
+    (``admitting``: their indices), by kind and the bucket of their longest
+    chunk."""
+    groups = {}
+    for i in sorted(admitting):
+        kind, pred = _priced(sim, records[i])
+        longest = max(length for length, _ in records[i].chunks)
+        groups.setdefault(f"{kind} {bucket_chunk(longest, SCHED.chunk_size)}",
+                          []).append((records[i].model_s, pred))
+    return _error_stats(groups)
+
+
+def _error_stats(groups: dict) -> dict:
+    """For each group of (measured, predicted) seconds: count, median
+    measured and predicted ms, MAPE and mean signed error (%)."""
     out = {}
     for kind, pairs in groups.items():
         real, pred = np.array(pairs).T
@@ -2282,6 +2316,40 @@ def _admission_split(pred: dict, pred_run, real: dict, real_run) -> dict:
     moved = _moved(pred_run[0], _admissions(*pred_run), _admissions(*real_run))
     return {**_ttft_split(pred, real, moved),
             "agree": _agree(pred_run[1], real_run[1])}
+
+
+def _ttft_parts(requests, plans, starts) -> tuple:
+    """Each finished request's TTFT (``request_metrics``' order) in two
+    parts: the wait from its arrival to the start of the iteration that
+    admits it, and the time of the iterations that carry its chunks, from
+    that start to its first token (the scheduler gives a request still
+    prefilling a chunk in every iteration).  ``plans``: the run's
+    ``(chunk lengths, decodes)`` an iteration; ``starts``: each
+    iteration's start on the run's clock.  Returns (wait, chunks) arrays."""
+    admitted = _admissions(requests, plans)
+    done = [r for r in requests if r.done]
+    begin = np.array([starts[admitted[r.rid]] for r in done])
+    return (begin - np.array([r.arrival for r in done]),
+            np.array([r.first_token_t for r in done]) - begin)
+
+
+def _parts_errors(pred: tuple, real: tuple, moved) -> dict:
+    """The error of each TTFT part of ``pred`` against ``real``
+    (``_ttft_parts``) as a share of ``real``'s TTFT (%), so the parts' signed
+    errors sum to TTFT's: MAPE and mean signed error over every request,
+    over those whose admission kept its iteration and over those whose
+    admission moved (``moved``: one bool a request)."""
+    moved = np.asarray(moved, bool)
+    ttft = real[0] + real[1]
+    out = {}
+    for name, p, r in zip(("wait", "chunks"), pred, real):
+        err = (p - r) / ttft * 100.0
+        out[name] = {key: ({"mape": float(np.abs(err[mask]).mean()),
+                            "bias": float(err[mask].mean())}
+                           if mask.any() else None)
+                     for key, mask in (("all", np.ones_like(moved)),
+                                       ("kept", ~moved), ("moved", moved))}
+    return out
 
 
 def _nearest(pts, t: int, r: int, c: int):
@@ -2437,7 +2505,7 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
     longest = max(r.prompt_len + r.max_new_tokens for r in trace())
     _require(longest <= max_seq, f"every request fits max_seq ({longest} "
              f"<= {max_seq})")
-    real, iterations, runs = [], [], []
+    real, iterations, runs, parts = [], [], [], []
     for _ in range(2):
         engine.reset()
         served = engine.run(trace())["requests"]
@@ -2446,8 +2514,13 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
         iterations.append((len(engine.records),
                            sum(1 for r in engine.records if not r.n_chunks)))
         drift.append((_decode_ms(engine.records), _card_state(device)))
+        parts.append(_ttft_parts(served, runs[-1][1],
+                                 [r.t_start for r in engine.records]))
         if len(real) == 1:
             by_kind = _iteration_errors(sim, engine.records)
+            admitting = _admitting_errors(
+                sim, engine.records,
+                set(_admissions(served, runs[-1][1]).values()))
     del engine
     _release(device)
     sim_run = sim.run(trace(), record_plans=True)
@@ -2463,6 +2536,17 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
             "sim": _admission_split(predicted, (sim_run["requests"],
                                                 sim_run["plans"]),
                                     real[0], runs[0])}
+    # which part of a request's TTFT carries the error: the wait before its
+    # admitting iteration, or the iterations that carry its chunks
+    sim_parts = _ttft_parts(sim_run["requests"], sim_run["plans"],
+                            [end - dt for end, _, dt in sim_run["iterations"]])
+    moved = {"noise": _moved(runs[1][0], _admissions(*runs[1]), _admissions(*runs[0])),
+             "sim": _moved(sim_run["requests"],
+                           _admissions(sim_run["requests"], sim_run["plans"]),
+                           _admissions(*runs[0]))}
+    ttft_parts = {"noise": _parts_errors(parts[1], parts[0], moved["noise"]),
+                  "sim": _parts_errors(sim_parts, parts[0], moved["sim"]),
+                  "admitting": admitting}
     points = {}
     for sig, phase, t, r, c, us in store.db.measurements_for_hardware(
             store.hardware):
@@ -2471,6 +2555,7 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
             "real": real, "iterations": iterations, "by_kind": by_kind,
             "noise": M.compare(real[1], real[0]), "sim_run": sim_run,
             "predicted": predicted, "cmp": cmp, "ttft_split": ttft,
+            "ttft_parts": ttft_parts,
             "near_floor": _near_floor_share(sim, points, sim_run["plans"])}
 
 
@@ -2526,6 +2611,20 @@ def _print_scored(res: dict, calibration: dict, score: dict, floor_us=None):
                   f"{'n/a' if t[k] is None else format(t[k], '.2f')} over the "
                   f"{t['n_' + k]} that {w}"
                   for k, w in (("kept", "kept theirs"), ("moved", "moved"))))
+    parts = res["ttft_parts"]
+    for key, what in (("noise", "engine run 2 vs run 1"),
+                      ("sim", "DoolySim vs engine run 1")):
+        print(f"  TTFT parts, {what} (error as a share of run 1's TTFT, "
+              f"MAPE / mean signed %; all, kept, moved): " + "; ".join(
+                  f"{part} " + ", ".join(
+                      "n/a" if e is None else f"{e['mape']:.2f} / {e['bias']:+.2f}"
+                      for e in (parts[key][part][k] for k in ("all", "kept", "moved")))
+                  for part in ("wait", "chunks")))
+    print("  iterations of engine run 1 that admitted a request, against "
+          "DoolySim's price (kind, bucket of the longest chunk): " + "; ".join(
+              f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} "
+              f"predicted (median), MAPE {v['mape']:.2f} %, bias {v['bias']:+.2f} %"
+              for k, v in sorted(parts["admitting"].items())))
 
 
 def _scored_summary(res: dict) -> dict:
@@ -2536,7 +2635,8 @@ def _scored_summary(res: dict) -> dict:
             "decode_ms": [ms for ms, _ in res["drift"]],
             "ttft_bias": _bias(res["predicted"], res["real"][0], "ttft"),
             "sim_iterations": len(res["sim_run"]["iterations"]),
-            "ttft_split": res["ttft_split"], "near_floor": res["near_floor"]}
+            "ttft_split": res["ttft_split"], "ttft_parts": res["ttft_parts"],
+            "near_floor": res["near_floor"]}
 
 
 def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
@@ -2548,24 +2648,26 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
     model), calibrate DoolySim on one engine run, then serve the score trace
     twice on the engine and predict it; then sweep the served model on that
     DB (``_sweep_scoring``; ``config_fn`` resolves its registry name).  Each
-    config of ``also`` is then profiled into the same DB and scored the same
-    way (its plan is built with the first, so that every fingerprint comes
-    before any timing).  Kernel counts are zeroed just before the plan's
-    execution and read after the last engine run.  ``db``: where the store
+    config of ``also`` is then planned on that DB, as a user adds a model to
+    a DB filled earlier in the process, profiled into it and scored the same
+    way.  Last, ``cfgs``' plan is built again: it must keep its id and find
+    every task measured.  Kernel counts are zeroed just before each plan's
+    execution and read after its last engine run.  ``db``: where the store
     keeps its points."""
     cfg = cfgs[0]
     cuda = device.type == "cuda"
     fallbacks = fingerprint.fallbacks
+
+    def no_fallback(what: str):
+        _require(fingerprint.fallbacks == fallbacks,
+                 f"no fingerprint of {what} fell back ({fingerprint.fallbacks - fallbacks} "
+                 f"did; the last with {fingerprint.last_error})")
     with ProfileStore(db, hardware=hardware, oracle=oracle, sweep=sweep,
                       device=device) as store:
         t0 = time.perf_counter()
         plan = store.plan(cfgs, backends=(PROFILE_BACKEND,))
         plan_s = time.perf_counter() - t0
-        also_plans = [(c, store.plan([c], backends=(PROFILE_BACKEND,)))
-                      for c in also]
-        _require(fingerprint.fallbacks == fallbacks,
-                 f"no fingerprint fell back ({fingerprint.fallbacks - fallbacks} "
-                 f"did; the last with {fingerprint.last_error})")
+        no_fallback("the plan")
         cov = plan.coverage()
         print(f"[12 profile->simulate] plan of {', '.join(c.name for c in cfgs)} "
               f"({PROFILE_BACKEND} backend, {oracle}, hardware {hardware}) built in "
@@ -2627,7 +2729,11 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
         print(f"  kernel launches (decode, flash fwd, flash bwd, scan) over the "
               f"execution and the engine runs: {counts}")
         more = {}
-        for other, other_plan in also_plans:
+        for other in also:
+            t0 = time.perf_counter()
+            other_plan = store.plan([other], backends=(PROFILE_BACKEND,))
+            other_plan_s = time.perf_counter() - t0
+            no_fallback(f"{other.name}'s plan")
             _zero_counts()
             other_cov = other_plan.coverage()
             t0 = time.perf_counter()
@@ -2638,7 +2744,8 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                                        score=score)
             other_counts = _counts()
             print(f"[12 profile->simulate] {other.name} through the same loop "
-                  f"(plan built before any timing): {len(other_plan.tasks)} tasks, "
+                  f"(planned after the timing above in {other_plan_s:.1f} s): "
+                  f"{len(other_plan.tasks)} tasks, "
                   f"{other_rep.measured} measured ({other_rep.satisfied} already "
                   f"in the DB), {other_rep.rows_written} points in {other_s:.1f} s; "
                   f"kernel launches (decode, flash fwd, flash bwd, scan) "
@@ -2646,10 +2753,28 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
             _print_scored(other_res, calibration, score, floor_us)
             more[other.name] = {**_scored_summary(other_res),
                                 "tasks": len(other_plan.tasks),
+                                "plan_s": other_plan_s,
                                 "planned_points": other_cov.plan_points,
                                 "rows": other_rep.rows_written, "execute_s": other_s,
                                 "decode_launches": other_counts[0],
                                 "launches": list(other_counts)}
+        # the first plan again, after every measurement and engine run of
+        # this process: a resume of it must find its journal's id and
+        # measure nothing
+        t0 = time.perf_counter()
+        again = store.plan(cfgs, backends=(PROFILE_BACKEND,))
+        rebuild = {"s": time.perf_counter() - t0, "plan_id": again.plan_id,
+                   "same_id": again.plan_id == plan.plan_id,
+                   "todo": len(again.todo), "tasks": len(again.tasks)}
+        no_fallback("the rebuilt plan")
+        print(f"[12 profile->simulate] the plan of {', '.join(c.name for c in cfgs)} "
+              f"built again after every measurement and engine run above, in "
+              f"{rebuild['s']:.1f} s: id {again.plan_id} "
+              f"({'the same' if rebuild['same_id'] else 'not ' + plan.plan_id}), "
+              f"{rebuild['todo']} of {rebuild['tasks']} tasks left to measure")
+        _require(rebuild["same_id"] and rebuild["todo"] == 0,
+                 f"the rebuilt plan keeps its id {plan.plan_id} and measures "
+                 f"nothing ({rebuild})")
     return {"coverage": cov.to_json(), "plan_s": plan_s, "execute_s": exec_s,
             "rows": rows, "spent_s": [r.spent_s for r in reports],
             "saved_s": [r.saved_s for r in reports], **_scored_summary(res),
@@ -2657,7 +2782,7 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
             "launch_floor_us": floor_us, "calls_per_step": calls_per_step,
             "sweep": scored, "decode_launches": counts[0]
             + sum(m["decode_launches"] for m in more.values()),
-            "flash_launches": counts[1], "also": more}
+            "flash_launches": counts[1], "also": more, "rebuild": rebuild}
 
 
 RESULT_TAG = "profile-simulate result: "
@@ -2759,22 +2884,28 @@ def _ok(res: dict, step: str, rc: int = 0) -> dict:
 def _agreement(path: Path, other: Path, hardware: str, shift: dict = None) -> dict:
     """The relative differences |a - b| / b of the points that two DBs,
     filled by different processes, both hold, and the point that differs
-    most: its op, (phase, toks, reqs, ctx) and both latencies in µs.
-    ``shift`` (signature -> µs) is added to ``path``'s points first."""
+    most: its op, (phase, toks, reqs, ctx) and both latencies in µs; the
+    signatures ``path`` measured and how many of them ``other`` measured
+    too, and each common signature's differences (``by_sig``).  ``shift``
+    (signature -> µs) is added to ``path``'s points first."""
     shift = shift or {}
     with LatencyDB(str(path)) as a, LatencyDB(str(other)) as b:
-        diffs = []
-        for sig in set(a.measured_hashes(hardware)) & set(b.measured_hashes(hardware)):
+        diffs, by_sig = [], {}
+        own = set(a.measured_hashes(hardware))
+        for sig in own & set(b.measured_hashes(hardware)):
             pa, pb = a.measurement_map(sig, hardware), b.measurement_map(sig, hardware)
             op = a.signature(sig)[0]
             pa = {k: v + shift.get(sig, 0.0) for k, v in pa.items()}
-            diffs += [(abs(pa[k] - pb[k]) / pb[k], op, list(k), pa[k], pb[k])
-                      for k in pa.keys() & pb.keys()]
+            mine = [(abs(pa[k] - pb[k]) / pb[k], op, list(k), pa[k], pb[k])
+                    for k in pa.keys() & pb.keys()]
+            by_sig[sig] = [d[0] for d in mine]
+            diffs += mine
     _require(diffs, f"{path.name} and {other.name} hold common points")
     worst = max(diffs)
     return {"points": len(diffs),
             "median": float(np.median([d[0] for d in diffs])),
-            "max": float(worst[0]), "worst": list(worst[1:])}
+            "max": float(worst[0]), "worst": list(worst[1:]),
+            "sigs": len(by_sig), "own_sigs": len(own), "by_sig": by_sig}
 
 
 def _shared_attn(paths, variant: str) -> dict:
@@ -2965,8 +3096,9 @@ def card_shim(prof, payload, cfg, backend):
     allocation of twice the device's memory) and ``garbage`` (NaN rows) on
     every attempt.  Every call that measures logs its op, its seconds, its
     span on the monotonic clock (``t0``, ``t1``: one clock for every
-    process of the machine), its kernel launches and its process's launch
-    floor under ``$CHIP_SHIM_LOG``."""
+    process of the machine), its kernel launches, its process's launch
+    floor and the card's SM clock read just after the span (``sm_mhz``,
+    read-only through NVML) under ``$CHIP_SHIM_LOG``."""
     module = payload[0] == "module"
     sig, op = (payload[3], payload[1]) if module else (payload[1], payload[2].kind)
     faults = {o: m for m, o in (f.split(":") for f in
@@ -2993,13 +3125,37 @@ def card_shim(prof, payload, cfg, backend):
     t0, before = time.monotonic(), _counts()
     rows = prof.measure_payload_rows(payload, cfg, backend)
     t1 = time.monotonic()
+    sm_mhz = _sm_clock() if dev.type == "cuda" else None
+    sm_read_s = time.monotonic() - t1
     floor = (launch_floor(torch.device("cuda", dev.index if dev.index is not None
                                        else torch.cuda.current_device()))
              if dev.type == "cuda" else None)
     _shim_log({"op": op, "sig": sig, "s": t1 - t0, "t0": t0, "t1": t1,
                "launches": [a - b for a, b in zip(_counts(), before)],
-               "floor_us": floor and floor * 1e6})
+               "floor_us": floor and floor * 1e6, "sm_mhz": sm_mhz,
+               "sm_read_s": sm_read_s if sm_mhz else None})
     return rows
+
+
+def _sm_clock() -> int:
+    """The SM clock of the machine's first card (the one this script runs
+    on) now, in MHz, read-only through NVML, the library nvidia-smi reads:
+    microseconds a read, where an nvidia-smi process takes a good part of a
+    second inside the worker's turn on the card."""
+    if not hasattr(_sm_clock, "handle"):
+        nvml = ctypes.CDLL("libnvidia-ml.so.1")
+        handle = ctypes.c_void_p()
+        for call, args in (("nvmlInit_v2", ()),
+                           ("nvmlDeviceGetHandleByIndex_v2",
+                            (ctypes.c_uint(0), ctypes.byref(handle)))):
+            if getattr(nvml, call)(*args):
+                raise RuntimeError(f"NVML's {call} failed")
+        _sm_clock.nvml, _sm_clock.handle = nvml, handle
+    mhz = ctypes.c_uint()
+    if _sm_clock.nvml.nvmlDeviceGetClockInfo(_sm_clock.handle, 1,  # NVML_CLOCK_SM
+                                             ctypes.byref(mhz)):
+        raise RuntimeError("NVML's nvmlDeviceGetClockInfo failed")
+    return mhz.value
 
 
 def _shim_env(log: Path, **extra) -> dict:
@@ -3028,6 +3184,35 @@ def _measured_after(records, mode: str) -> list:
         own = [r for r in records if r["pid"] == pid]
         first = next(i for i, r in enumerate(own) if r.get("fault") == mode)
         out += [r for r in own[first:] if "s" in r]
+    return out
+
+
+def _op_kind(op: str) -> str:
+    return ("mm" if op in ("mm", "addmm", "bmm") else
+            op if op == "self_attn" else "elementwise")
+
+
+def _worker_spread(records, by_sig: dict) -> dict:
+    """Each worker's median relative difference against another DB
+    (``by_sig``: a signature's point differences, ``_agreement``'s) by op
+    kind (``mm``-like, ``self_attn``, elementwise and the rest) and by its
+    turn (the first, middle and last third of its tasks, in its order),
+    with the point counts and the SM clocks it read while measuring."""
+    out = {}
+    for pid in sorted({r["pid"] for r in records if "s" in r}):
+        own = [r for r in records if r["pid"] == pid and "s" in r]
+        groups = {}
+        for i, r in enumerate(own):
+            diffs = by_sig.get(r["sig"], [])
+            for key in ("all", _op_kind(r["op"]),
+                        ("first", "middle", "last")[3 * i // len(own)] + " third"):
+                groups.setdefault(key, []).extend(diffs)
+        out[pid] = {"tasks": len(own),
+                    "median": {k: float(np.median(v)) if v else None
+                               for k, v in groups.items()},
+                    "points": {k: len(v) for k, v in groups.items()},
+                    "sm_mhz": sorted({r["sm_mhz"] for r in own
+                                      if r.get("sm_mhz") is not None})}
     return out
 
 
@@ -3119,7 +3304,9 @@ def phase_pool(workdir: Path, cli_args: list, device, *, models, full: bool,
           f"workers, {rows} rows (the dry run's {dry['plan_points']} points), "
           f"{report['quarantined']} quarantined, workers {report.get('workers')}; "
           f"{_card(device)}")
-    print(f"  points against {compare_db.name}'s: {agree['points']} in common, "
+    spread = _worker_spread(records, agree["by_sig"])
+    print(f"  points against {compare_db.name}'s: {agree['points']} in common "
+          f"({agree['sigs']} of the pooled DB's {agree['own_sigs']} signatures), "
           f"relative difference median {100 * agree['median']:.3f} %, max "
           f"{100 * agree['max']:.3f} % ({agree['worst'][0]} at {agree['worst'][1]}); "
           f"phase 13's serial shards: median {100 * shards['median']:.3f} %, max "
@@ -3136,6 +3323,22 @@ def phase_pool(workdir: Path, cli_args: list, device, *, models, full: bool,
              f"with phase 12's floor: median {100 * rebased['median']:.3f} %, max "
              f"{100 * rebased['max']:.3f} %" if rebased else " (none)")
           + f"; measurements of two workers overlapping on the card: {len(overlaps)}")
+    for pid, w in spread.items():
+        print(f"  worker {pid}: {w['tasks']} tasks, median relative difference "
+              f"against {compare_db.name}'s (points) " + ", ".join(
+                  f"{k} " + ("n/a" if w["median"].get(k) is None else
+                             f"{100 * w['median'][k]:.3f} % ({w['points'][k]})")
+                  for k in ("all", "mm", "self_attn", "elementwise", "first third",
+                            "middle third", "last third"))
+              + "; SM clock while measuring "
+              + (", ".join(map(str, w["sm_mhz"])) + " MHz" if w["sm_mhz"]
+                 else "not read (no card)"))
+    sm_read_s = sum(r.get("sm_read_s") or 0.0 for r in records)
+    if device.type == "cuda":
+        print(f"  the SM clock reads took {sm_read_s:.4f} s in all")
+    check(agree["sigs"] == agree["own_sigs"],
+          f"every signature the pooled run measured is one {compare_db.name} "
+          f"holds ({agree['sigs']} of {agree['own_sigs']})")
     check(device.type != "cuda" or not overlaps,
           f"no two workers' measurements overlap on the card "
           f"({overlaps[:3]})")
@@ -3157,6 +3360,7 @@ def phase_pool(workdir: Path, cli_args: list, device, *, models, full: bool,
             "workers": report.get("workers"), "worker_launches": launches,
             "worker_floors_us": list(floors.values()), "own_floor_us": own_floor,
             "rebased_agreement": rebased, "overlaps": len(overlaps),
+            "spread": spread, "sm_read_s": sm_read_s,
             "decode_launches": launches[0] + res["counts"][0],
             "flash_launches": launches[1] + res["counts"][1]}
 
@@ -3864,7 +4068,8 @@ def kernels_line(kernels: dict, serving: dict, granite: dict, prefill: dict,
     """Launches are counted on the main paths: decode while serving llama3
     (one run), granite-20b and phase 14's families (one run each), over
     phase 12's loop (olmoe-1b-7b's scoring included) and sweep scoring and
-    over the CLI processes of phases 13 and 14, the flash forward over the
+    over the CLI processes of phase 13 (and of ``plan``, a family plan's),
+    the flash forward over the
     prefills (hymba-1.5b's too), the train steps, the loop and the CLIs, the
     backward over the train steps, the scan while serving falcon-mamba and
     hymba-1.5b (one run each) and over their prefills; phase 15's paths
@@ -3971,6 +4176,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    # where the interpreter's packages hold no bytecode it may read (on the
+    # card's machine every process compiled ~1600 of torch's modules, ~6 s
+    # of its start-up), a bytecode cache under build/ is written by the
+    # first process that imports a module and read by every later one: the
+    # child processes of every phase inherit the variable
+    os.environ.setdefault("PYTHONPYCACHEPREFIX",
+                          str(Path(__file__).resolve().parent / "build" / "pycache"))
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    sys.dont_write_bytecode = False
     if sys.argv[1:] == ["--profile-simulate"]:
         return profile_simulate_main()
     if sys.argv[1:] == ["--phase15"]:
@@ -4017,8 +4232,6 @@ def main() -> int:
     served = {}
     for tag, fcfg in zip(("mla", "moe", "hybrid"), families):
         served[tag] = phase_family(fcfg, device, tag)
-    plan = phase_family_plan([], device, models=PLAN_MODELS, full=True,
-                             base_db=CLI_DIR / "merged.sqlite", db=PHASE14_DB)
     end("14")
     p15 = phase15(frontends, device, CLI_DIR / "merged.sqlite")
     end("15")
@@ -4032,7 +4245,8 @@ def main() -> int:
     print(f"[end] all phases passed in {time.perf_counter() - t0:.1f} s (each "
           f"phase's end, s: {', '.join(ends)})")
     kernels_line(kernels, serving, granite, prefill, train, mamba_serving,
-                 mamba_prefill, loop, cli, served, plan, p15, p16, p17, p18)
+                 mamba_prefill, loop, cli, families=served, phase15=p15,
+                 phase16=p16, phase17=p17, phase18=p18)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": info["kind"],
                                              "count": info["count"]}}))

@@ -7,7 +7,9 @@ full width), this takes ``--reps`` profiler sessions of the call in each of
 kept their sentinels and how many of those gave a kernel set other than the
 call's usual one (``raw``).  Then it takes ``--reps`` fingerprints of each
 call through ``repro_torch.core.signature._cuda_kernels`` and prints how
-many differ from the usual set (``helper``).  Needs an NVIDIA GPU::
+many differ from the usual set (``helper``).  A signature does not rest on
+these sets: its component 2 is the aten overloads and the port's kernels a
+call dispatches (``core/signature.py``).  Needs an NVIDIA GPU::
 
     PYTHONPATH=src python examples/torch_fingerprint_sessions.py --reps 100
 """

@@ -14,14 +14,20 @@ components:
    with the reshape that flattens its tokens and close it with the one
    that restores them; its ``n_ops`` counts aten ops, not jaxpr
    equations;
-2. the kernel fingerprint at a canonical probe point.  On the card it is
-   the sorted set of CUDA kernel names that ``torch.profiler`` records for
-   one eager call, the CUPTI kernel symbols the paper names; on the CPU it
-   is the sorted set of aten overloads one call dispatches, recorded by a
-   ``TorchDispatchMode``.  The reference lowers to StableHLO instead, so
-   this component differs from its by design.  A module entry's
-   fingerprint covers every phase it is profiled in (the decode phase runs
-   other kernels than the prefill phase);
+2. the kernel fingerprint at a canonical probe point: the sorted set of
+   aten overloads one eager call dispatches, recorded by a
+   ``TorchDispatchMode``, and of the port's own kernels it launched, read
+   from their wrappers' launch counters (``repro_torch::decode_attention``
+   and the like; on the CPU a wrapper runs its plain version and counts
+   nothing).  It is what the call asks of the device, as the reference's
+   compile-time StableHLO op set is, so it differs from the reference's by
+   design.  It is not the CUDA kernel names ``torch.profiler`` records
+   (the paper's CUPTI symbols): which library kernels run, and whether a
+   session records them, depends on what the process ran before (after
+   ``cuda_events`` timing its sessions can fail to agree), so the same
+   call could sign apart in two builds and a plan lose its id.  A module
+   entry's fingerprint covers every phase it is profiled in (the decode
+   phase runs other kernels than the prefill phase);
 3. a digest of the module's primitive attributes (window, head counts, …)
    capturing runtime branching invisible at kernel level.
 
@@ -31,8 +37,7 @@ database; dedup is a key lookup.
 A fingerprint that cannot be taken falls back to ``prim:<op>`` or
 ``module:<kind>``, as the reference's does; each fallback adds one to
 ``fingerprint.fallbacks`` (its error in ``fingerprint.last_error``), so a
-caller can refuse a profile in which one fell back.  Take fingerprints before any ``cuda_events`` timing in a
-process: an active profiler slows graph replays.
+caller can refuse a profile in which one fell back.
 """
 from __future__ import annotations
 
@@ -46,6 +51,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.opset import ModuleEntry, OpEntry
 from repro_torch.core.taint import MODEL_CONFIG, NUM_REQS, NUM_TOKS
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_attention_fwd)
+from repro_torch.kernels.mamba_scan import mamba_scan
 
 PROBE_TOKS = 8
 PROBE_REQS = 2
@@ -112,6 +121,11 @@ class _AtenOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+#: the port's kernel wrappers, each counting the launches of its kernel
+_KERNELS = (decode_attention, flash_attention_fwd, flash_attention_bwd,
+            mamba_scan)
+
+
 #: the sentinel kernel that brackets a profiled call (``torch.cuda._sleep``),
 #: how many lead the first call, how many calls a session makes (each
 #: closed by a sentinel), and how many sessions may be taken before one fails
@@ -120,7 +134,11 @@ _SENTINEL, _LEADING, _CALLS, _ATTEMPTS = "spin_kernel", 3, 3, 8
 
 def _cuda_kernels(fn: Callable, args: Sequence[Any]) -> set:
     """Names of the device activities (kernels, copies) of one eager call,
-    after a first call that builds kernels and fills library caches.
+    after a first call that builds kernels and fills library caches, as
+    ``torch.profiler`` records them: the library kernels a call runs, which
+    a fingerprint leaves out (see the module's docstring);
+    ``examples/torch_fingerprint_sessions.py`` measures how often a session
+    loses one.
 
     A profiler session can lose device activities it should record (seen
     on an H100: in some processes the first activity of most sessions, and
@@ -130,8 +148,7 @@ def _cuda_kernels(fn: Callable, args: Sequence[Any]) -> set:
     makes the call ``_CALLS`` times and counts when its first and last
     activities are sentinels, its set is the union over its calls, and a
     set is kept once two sessions that count give it.  A lost kernel
-    would otherwise change a signature, and with it a plan's id, from one
-    process to the next."""
+    would otherwise change the set from one process to the next."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
@@ -159,17 +176,15 @@ def _cuda_kernels(fn: Callable, args: Sequence[Any]) -> set:
 
 def fingerprint(calls: Sequence[Tuple[Callable, Sequence[Any]]]) -> str:
     """Sorted kernel set of ``fn(*args)`` for every (fn, args) of
-    ``calls``: CUDA kernel names where the first tensor argument lies on
-    the card, aten overloads otherwise."""
+    ``calls``: the aten overloads it dispatches and the port's kernels it
+    launches (``repro_torch::<wrapper>``), on any device."""
     names: set = set()
     for fn, args in calls:
-        tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        if tensors and tensors[0].is_cuda:
-            names |= _cuda_kernels(fn, args)
-        else:
-            with torch.no_grad(), _AtenOps() as mode:
-                fn(*args)
-            names |= mode.ops
+        before = [k.launches for k in _KERNELS]
+        with torch.no_grad(), _AtenOps() as mode:
+            fn(*args)
+        names |= mode.ops | {f"repro_torch::{k.__name__}"
+                             for k, n in zip(_KERNELS, before) if k.launches > n}
     return ",".join(sorted(names))
 
 

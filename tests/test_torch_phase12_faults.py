@@ -1,8 +1,9 @@
 """chip_smoke.py's phase-12 readings of its own noise, on the CPU: the
 iteration that admitted each request (from a run's chunk lengths and its
-requests), TTFT MAPE apart over the requests whose admission moved, and the
+requests), TTFT MAPE apart over the requests whose admission moved, the
 share of a predicted decode iteration that rests on DB points measured near
-the oracle's launch floor."""
+the oracle's launch floor, and each request's TTFT split into its wait and
+the iterations that carry its chunks."""
 import importlib.util
 from pathlib import Path
 
@@ -218,3 +219,68 @@ def test_near_floor_share_on_points_straddling_the_margin(near_floor_sim,
     assert out["predicted_ms"] == pytest.approx(per_iter * 1e3, rel=1e-12)
     assert sim.run([])["iterations"] == []
     assert cs._near_floor_share(sim, points, [((8,), 0)])["median"] is None
+
+
+# ---------------------------------------------------------------------------
+# which part of a request's TTFT carries the error
+# ---------------------------------------------------------------------------
+
+def test_ttft_parts_of_a_hand_built_run():
+    """RUN_1 at half a second an iteration: request 0 is admitted at 0 and
+    prefills until 1.0; request 1 arrives at 0.5, is admitted at once and
+    done at 1.0; request 2 arrives at 1.0, waits for a row until 1.5 and is
+    done at 2.0.  Wait and chunks sum to each TTFT."""
+    records = _records(RUN_1, dt=0.5)
+    requests = _requests((1.0, 0.5, 1.0))
+    wait, chunks = cs._ttft_parts(requests, cs._engine_plans(records),
+                                  [r.t_start for r in records])
+    assert wait.tolist() == [0.0, 0.0, 0.5]
+    assert chunks.tolist() == [1.0, 0.5, 0.5]
+    assert (wait + chunks).tolist() == list(
+        M.request_metrics(requests)["ttft"])
+
+
+def test_parts_errors_sum_to_the_ttft_error():
+    """Each part's error is a share of the real TTFT: the wait's and the
+    chunks' signed errors sum to TTFT's, over every request and apart over
+    the kept and the moved ones."""
+    real = (np.array([0.0, 0.0, 0.5]), np.array([1.0, 0.5, 0.5]))
+    pred = (np.array([0.1, 0.0, 0.25]), np.array([1.2, 0.5, 0.45]))
+    out = cs._parts_errors(pred, real, [False, False, True])
+    ttft = real[0] + real[1]
+    wait = (pred[0] - real[0]) / ttft * 100
+    chunks = (pred[1] - real[1]) / ttft * 100
+    assert out["wait"]["all"]["bias"] == pytest.approx(wait.mean())
+    assert out["chunks"]["all"]["mape"] == pytest.approx(np.abs(chunks).mean())
+    assert out["wait"]["kept"]["mape"] == pytest.approx(np.abs(wait[:2]).mean())
+    assert out["chunks"]["moved"]["bias"] == pytest.approx(chunks[2])
+    total = ((pred[0] + pred[1]) - ttft) / ttft * 100
+    for key, mask in (("all", [0, 1, 2]), ("kept", [0, 1]), ("moved", [2])):
+        assert out["wait"][key]["bias"] + out["chunks"][key]["bias"] == \
+            pytest.approx(total[mask].mean())
+    assert cs._parts_errors(pred, real, [False] * 3)["wait"]["moved"] is None
+
+
+class _Priced:
+    """DoolySim's pricing as ``_iteration_errors`` reads it: a tenth over
+    each iteration's measured time, no overheads."""
+    overhead_s = chunk_overhead_s = 0.0
+
+    @staticmethod
+    def predict_record(r):
+        return 1.1 * r.model_s
+
+
+def test_admitting_iterations_by_kind_and_bucket():
+    """Only the iterations that admitted a request, keyed by their kind and
+    the bucket of their longest chunk."""
+    records = _records(RUN_1, dt=0.5)
+    records[1].n_decodes = 1                     # a mixed iteration
+    admitting = set(cs._admissions(_requests((1.0, 0.5, 1.0)),
+                                   cs._engine_plans(records)).values())
+    assert admitting == {0, 1, 3}
+    out = cs._admitting_errors(_Priced(), records, admitting)
+    assert sorted(out) == ["chunks 8", "mixed 8"]
+    assert out["chunks 8"]["n"] == 2 and out["mixed 8"]["n"] == 1
+    assert all(v["bias"] == pytest.approx(10.0) for v in out.values())
+    assert "decode" in cs._iteration_errors(_Priced(), records)

@@ -342,11 +342,32 @@ def test_chip_smoke_phases_on_cpu(capsys, tmp_path):
     assert near["iterations"] > 0 and near["rows"] > 0
     assert 0 <= near["median"] == near["max"] <= 1
     assert "near-floor share of DoolySim's decode-only iterations" in out
-    # phase 12 scores olmoe-1b-7b through the same loop and DB
+    # phase 12 scores olmoe-1b-7b through the same loop and DB, its plan
+    # built after the timing above
     olmoe = loop["also"]["olmoe-smoke"]
     assert olmoe["rows"] == olmoe["planned_points"] > 0
     assert all(np.isfinite(v) for v in olmoe["sim"].values())
-    assert "olmoe-smoke through the same loop" in out
+    assert "olmoe-smoke through the same loop (planned after the timing" in out
+    assert olmoe["plan_s"] > 0
+    # each scored model's TTFT in two parts, whose signed errors sum to
+    # TTFT's, beside the admitting iterations' price
+    for scored in (loop, olmoe):
+        for key in ("noise", "sim"):
+            parts = scored["ttft_parts"][key]
+            assert set(parts) == {"wait", "chunks"}
+            assert all(parts[p]["all"]["mape"] >= 0 for p in parts)
+        sim_parts = scored["ttft_parts"]["sim"]
+        assert sim_parts["wait"]["all"]["bias"] + sim_parts["chunks"]["all"][
+            "bias"] == pytest.approx(100 * scored["ttft_bias"])
+        admitting = scored["ttft_parts"]["admitting"]
+        assert sum(v["n"] for v in admitting.values()) > 0
+        assert all(k.split()[0] in ("chunks", "mixed") for k in admitting)
+    assert out.count("TTFT parts, DoolySim vs engine run 1") == 2
+    assert out.count("iterations of engine run 1 that admitted a request") == 2
+    # the first plan built again after all of it: its id, nothing to measure
+    assert loop["rebuild"]["same_id"] and loop["rebuild"]["todo"] == 0
+    assert loop["rebuild"]["tasks"] == cov["plan_tasks"]
+    assert "built again after every measurement and engine run above" in out
     # phase 12's sweep: four scenarios, none failed, the served one scored
     # bare and calibrated
     swept = loop["sweep"]
