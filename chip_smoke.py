@@ -142,7 +142,16 @@ meshes (the dry run), and checks them, one line per phase:
              iteration that admits it and the iterations that carry its
              chunks, each part's error printed over the requests whose
              admission kept or moved, beside the admitting iterations'
-             price by bucket.  Last, the llama3-8b + command-r7b plan is
+             price by bucket.  For both, ``[12 mixed]`` then runs each
+             iteration shape (a chunk of 64, 128 or 256 tokens after 256
+             cached tokens, its prompt's last or not, beside the decode
+             batch or alone) 20 times on the same engine and prints (a)
+             execute's host clock, (b) CUDA events over its graphs, (c)
+             each graph alone, (d) the DB's raw points, (e) DoolySim's
+             price in its terms, and the differences e-d, d-c, b-c and
+             a-b, which sum to DoolySim's error on (a); then the score
+             trace priced on the raw points (the oracle backend) under the
+             same calibration.  Last, the llama3-8b + command-r7b plan is
              built again: the same plan id, nothing left to measure.
 13. cli     — Dooly's configuration-search surface through its command
              lines, each step a fresh process that runs the CLI module as
@@ -343,13 +352,14 @@ from repro_torch.api import (ProfileStore, SchedSpec,  # noqa: E402
 from repro_torch.configs import (ASSIGNED_ARCHS, CORPUS_ARCHS,  # noqa: E402
                                  get_config, get_smoke_config)
 from repro_torch.core.profiler import QUICK_SWEEP, SweepConfig  # noqa: E402
-from repro_torch.core.signature import fingerprint  # noqa: E402
+from repro_torch.core.signature import LINEAR_OPS, fingerprint  # noqa: E402
 from repro_torch.parallel.roofline import default_hardware  # noqa: E402
 from repro_torch.core.opset import (ModuleEntry, OpEntry,  # noqa: E402
                                     find_runnable_set)
 from repro_torch.core.runner import trace_model  # noqa: E402
-from repro_torch.core.backends import (cpu_wallclock, cuda_events,  # noqa: E402
-                                       launch_floor)
+from repro_torch.core.backends import (BUSY_CYCLES, cpu_wallclock,  # noqa: E402
+                                       cuda_events, launch_floor)
+from repro_torch.core.device import synchronize  # noqa: E402
 from repro_torch.core.database import LatencyDB  # noqa: E402
 from repro_torch.core.journal import read_journal_state  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -361,7 +371,8 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.serving import (Engine, Request, SchedulerConfig,  # noqa: E402
                                  bucket_chunk, build_context, phases_for)
-from repro_torch.serving.scheduler import IterationPlan  # noqa: E402
+from repro_torch.serving.engine import mark, span_s  # noqa: E402
+from repro_torch.serving.scheduler import IterationPlan, PrefillChunk  # noqa: E402
 from repro_torch.sim import metrics as M  # noqa: E402
 from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
                                init_train_state, make_optimizer, make_train_step)
@@ -473,6 +484,10 @@ PROFILE_SWEEP = SweepConfig(toks=(8, 16, 32, 64, 128, 256), reqs=(1, 8),
                             repeats=20)
 PROFILE_BACKEND = "kernel"
 CALIBRATION = dict(n=4, rate=1.0, prompt_len=512, out_len=32, seed=9)
+#: ``[12 mixed]``: one chunk of each bucket after ``start`` cached tokens,
+#: the other rows ``decode_len`` tokens in, each iteration shape ``repeats``
+#: times
+MIXED = dict(buckets=(64, 128, 256), start=256, decode_len=384, repeats=20)
 SCORE = dict(n=32, rate=4.0, seed=4, scale=0.25)
 SHARED_VARIANT = "32/8/128"          # the GQA geometry llama3 shares
 MAKESPAN_MAPE_LIMIT = 25.0
@@ -2361,6 +2376,88 @@ def _nearest(pts, t: int, r: int, c: int):
         abs(math.log(max(p[2], 1)) - math.log(max(c, 1)))))
 
 
+def _row_prices(lat, points, key) -> list:
+    """Each call-graph row of ``lat`` (a ``DoolyBackend``) in one model call
+    ``key`` ((phase, toks, reqs, ctx)): the row, its mapped workload point
+    (``_map_row``), the DB's point there in µs, or else the nearest
+    (``_nearest``; ``points`` as ``_near_floor_share`` takes them), whether
+    the DB holds that exact key, and the fit's seconds there."""
+    phase, toks, reqs, ctx = key
+    out = []
+    for row in lat.rows:
+        ph, t, r, c = lat._map_row(row, phase, toks, reqs, ctx)
+        pts = points.get((row.sig, ph)) or points.get(
+            (row.sig, "decode" if ph == "prefill" else "prefill"), [])
+        near = _nearest(pts, t, r, c) if pts else None
+        out.append({"row": row, "key": (ph, t, r, c),
+                    "point_us": near[3] if near else None,
+                    "exact": near is not None and near[:3] == (t, r, c),
+                    "fit_s": lat.lm.predict(row.sig, ph, toks=t, reqs=r, ctx=c)})
+    return out
+
+
+def _row_group(row) -> str:
+    """The group a call-graph row's price is reported under: its module
+    kind if stateful (``self_attn``, ``moe``, ...), ``linear`` for a
+    matmul op, else ``other``."""
+    if row.stateful:
+        return row.kind
+    return "linear" if row.kind.split(".")[1:2] in ([k] for k in LINEAR_OPS) \
+        else "other"
+
+
+def _call_price(lat, points, key) -> dict:
+    """One model call's price two ways: ``raw``, the DB's points with no fit
+    (each row's count x its point, ``_row_prices``), and ``fit``, DoolySim's
+    rows (count x the fit), in seconds; both by ``_row_group``; the timed
+    calls it sums (the rows' counts) and the rows priced at an exact key."""
+    raw = fit = 0.0
+    groups, calls, exact, errors = {}, 0, 0, []
+    rows = _row_prices(lat, points, key)
+    for p in rows:
+        n = p["row"].count
+        r_s = n * (p["point_us"] or 0.0) * 1e-6
+        f_s = n * p["fit_s"]
+        raw += r_s
+        fit += f_s
+        g = groups.setdefault(_row_group(p["row"]), [0.0, 0.0])
+        g[0] += r_s
+        g[1] += f_s
+        calls += n
+        exact += p["exact"]
+        errors.append((f_s - r_s, p["row"].kind, n, p["key"]))
+    _require(abs(fit - lat.predict_points([key])[0]) <= 1e-9 + 1e-9 * fit,
+             f"the rows walked sum to DoolySim's price of the call {key}")
+    worst = sorted(errors, key=lambda e: -abs(e[0]))[:3]
+    return {"raw": raw, "fit": fit, "groups": groups, "calls": calls,
+            "exact": exact, "rows": len(rows),
+            "worst": [{"fit_minus_raw": e, "kind": k, "count": n, "key": list(at)}
+                      for e, k, n, at in worst]}
+
+
+def _iteration_price(lat, points, bucket, decodes: bool) -> dict:
+    """(d) and (e) of one iteration of one chunk of ``bucket`` tokens (None:
+    no chunk) with the decode batch or without: each call's ``_call_price``
+    and DoolySim's fitted price in its four terms, ``overhead_s``,
+    ``chunk_overhead_s`` a chunk, the chunk's rows and ``decode_scale`` x
+    the decode rows (s), whose sum is DoolySim's price of the plan."""
+    calls = {"chunk": None if bucket is None else _call_price(
+                 lat, points, ("prefill", bucket, 1, lat.max_seq)),
+             "decode": _call_price(lat, points, lat._decode_key())
+             if decodes else None}
+    terms = {"overhead": lat.overhead_s,
+             "chunk_overhead": 0.0 if bucket is None else lat.chunk_overhead_s,
+             "chunk": 0.0 if bucket is None else calls["chunk"]["fit"],
+             "decode": lat.decode_scale * calls["decode"]["fit"] if decodes else 0.0}
+    fitted = sum(terms.values())
+    n_dec = lat.sched_config.max_num_seqs if decodes else 0
+    plan = (() if bucket is None else (bucket,), n_dec)
+    _require(abs(fitted - lat.predict_plan(plan)) <= 1e-12 + 1e-9 * fitted,
+             f"the terms sum to DoolySim's price of {plan}")
+    raw = sum(c["raw"] for c in calls.values() if c)
+    return {"calls": calls, "terms": terms, "raw_s": raw, "fit_s": fitted}
+
+
 def _near_floor_share(sim, points, plans, *, margin_us: float = 1.0) -> dict:
     """The share of DoolySim's predicted time of each decode-only iteration
     (``plans``: its run's ``(chunk lengths, decodes)``) that rests on DB
@@ -2371,22 +2468,15 @@ def _near_floor_share(sim, points, plans, *, margin_us: float = 1.0) -> dict:
     the margin), so a point is near the floor when it holds less than
     ``margin_us``.  A call-graph row rests on the point of its signature
     and mapped phase at its mapped workload, or else the nearest
-    (``_nearest``); a decode call is priced at one workload point, so every
-    decode-only iteration has the same share."""
+    (``_row_prices``); a decode call is priced at one workload point, so
+    every decode-only iteration has the same share."""
     lat = sim.latency
-    phase, toks, reqs, ctx = lat._decode_key()
-    near_s = total_s = 0.0
-    n_near = 0
-    for row in lat.rows:
-        ph, t, r, c = lat._map_row(row, phase, toks, reqs, ctx)
-        pts = points.get((row.sig, ph)) or points.get(
-            (row.sig, "decode" if ph == "prefill" else "prefill"), [])
-        s = row.count * lat.lm.predict(row.sig, ph, toks=t, reqs=r, ctx=c)
-        total_s += s
-        if pts and _nearest(pts, t, r, c)[3] < margin_us:
-            near_s += s
-            n_near += 1
-    _require(abs(total_s - lat.predict_points([(phase, toks, reqs, ctx)])[0])
+    rows = _row_prices(lat, points, lat._decode_key())
+    total_s = sum(p["row"].count * p["fit_s"] for p in rows)
+    near = [p for p in rows
+            if p["point_us"] is not None and p["point_us"] < margin_us]
+    near_s = sum(p["row"].count * p["fit_s"] for p in near)
+    _require(abs(total_s - lat.predict_points([lat._decode_key()])[0])
              <= 1e-9 + 1e-9 * total_s,
              "the rows walked sum to DoolySim's price of a decode call")
     per_iter = lat.overhead_s + lat.decode_scale * total_s
@@ -2394,8 +2484,151 @@ def _near_floor_share(sim, points, plans, *, margin_us: float = 1.0) -> dict:
     shares = [share for lengths, n_dec in plans if not lengths and n_dec]
     return {"median": float(np.median(shares)) if shares else None,
             "max": max(shares) if shares else None, "iterations": len(shares),
-            "near_rows": n_near, "rows": len(lat.rows),
+            "near_rows": len(near), "rows": len(lat.rows),
             "predicted_ms": per_iter * 1e3, "margin_us": margin_us}
+
+
+def _iteration_kinds(records) -> dict:
+    """{kind and bucket: iterations} of an engine run: ``decode``, or
+    ``chunks B`` / ``mixed B`` (chunks alone / beside decodes) by the bucket
+    of the iteration's longest chunk."""
+    out = {}
+    for r in records:
+        if r.n_chunks:
+            longest = max(length for length, _ in r.chunks)
+            kind = (f"{'mixed' if r.n_decodes else 'chunks'} "
+                    f"{bucket_chunk(longest, SCHED.chunk_size)}")
+        else:
+            kind = "decode"
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def _mixed_plan(engine, bucket: int, last: bool, decodes: bool, *,
+                start: int, decode_len: int) -> tuple:
+    """One iteration shape of ``[12 mixed]``: a chunk of ``bucket`` tokens
+    in cache row 0 after ``start`` cached tokens, the last of its prompt or
+    not, beside a decode of every other row (each ``decode_len`` tokens in)
+    or alone; as (the plan, the engine's row lengths before it)."""
+    rows = engine.sched.config.max_num_seqs
+    req = Request(0, 0.0, [1] * (start + bucket * (1 if last else 2)), 1,
+                  slot=0)
+    decs = [Request(i, 0.0, [1] * decode_len, 2, prefilled=decode_len, slot=i)
+            for i in range(1, rows)] if decodes else []
+    return (IterationPlan([PrefillChunk(req, start, bucket)], decs),
+            [start] + [decode_len] * (rows - 1))
+
+
+def _alone_s(engine, run, key, repeats: int) -> list:
+    """Seconds of one engine step alone, ``repeats`` times: on the card the
+    engine's captured graph ``key`` replayed behind a busy kernel, as
+    ``cuda_events`` times a point (its inputs as one ``run()`` of the
+    engine's step method left them); on the CPU ``run()`` itself."""
+    engine.timeline = []
+    run()
+    synchronize(engine.device)
+    if engine.device.type == "cuda":
+        g = engine.graphs[key]
+        for _ in range(repeats):
+            torch.cuda._sleep(BUSY_CYCLES)
+            engine._marked(g.replay)
+    else:
+        for _ in range(repeats - 1):
+            run()
+    synchronize(engine.device)
+    marks, engine.timeline = engine.timeline, None
+    if engine.device.type == "cuda":
+        marks = marks[1:]
+    return [span_s(a, b) for a, b in marks]
+
+
+def _launch_s(engine, key, repeats: int) -> dict:
+    """The engine's graph ``key`` launched on an idle card, ``repeats``
+    times: the median device span from an event recorded just before the
+    launch to one just after (``idle_s``; against ``_alone_s`` the time the
+    card waits for the launch), and the median host seconds the launch call
+    takes (``host_s``); None off the card."""
+    if engine.device.type != "cuda":
+        return None
+    g = engine.graphs[key]
+    idle, host = [], []
+    for _ in range(repeats):
+        synchronize(engine.device)
+        start = mark(engine.device)
+        t0 = time.perf_counter()
+        g.replay()
+        host.append(time.perf_counter() - t0)
+        end = mark(engine.device)
+        synchronize(engine.device)
+        idle.append(span_s(start, end))
+    return {"idle_s": float(np.median(idle)), "host_s": float(np.median(host))}
+
+
+def _mixed_decomposition(engine, sim, points, *, buckets, start: int,
+                         decode_len: int, repeats: int) -> dict:
+    """``[12 mixed]``: each iteration shape (``_mixed_plan``: a chunk of each
+    bucket, its prompt's last or not, with the decode batch or alone) run
+    ``repeats`` times through ``Engine.execute`` on the engine of the score
+    runs, and five readings of it (medians, s):
+
+    (a) ``execute``'s host-clock seconds; (b) the device time from the
+    first graph's start to the last graph's end (``Engine.timeline``), and
+    each graph's span inside the iteration; (c) the chunk graph and the
+    decode graph each alone (``_alone_s``, half the repeats, taken just
+    before the bucket's shapes); (d) the DB's raw points for the
+    iteration's calls, and (e) DoolySim's fitted price in its terms
+    (``_iteration_price``).  Each graph is also launched on an idle card
+    (``_launch_s``).  The engine is ``reset`` afterwards."""
+    cuda = engine.device.type == "cuda"
+    alone, launch, shapes = {}, {}, []
+    for b in buckets:
+        plan, lengths = _mixed_plan(engine, b, True, True, start=start,
+                                    decode_len=decode_len)
+        chunk = plan.prefills[0]
+        engine.lengths = list(lengths)
+        engine.execute(plan)            # captures the chunk graph if it is new
+        engine.lengths = list(lengths)
+        ids, toks = chunk.req.prompt[start:start + b], engine._decode_tokens(plan)
+        alone[b] = {
+            "chunk": float(np.median(_alone_s(
+                engine, lambda: (engine._chunk_graph if cuda else
+                                 engine._chunk_eager)(chunk, b, ids),
+                ("chunk", b, 0), max(repeats // 2, 1)))),
+            "decode": float(np.median(_alone_s(
+                engine, lambda: (engine._decode_graph if cuda else
+                                 engine._decode_eager)(toks),
+                ("decode",), max(repeats // 2, 1))))}
+        launch[b] = {"chunk": _launch_s(engine, ("chunk", b, 0), repeats // 2),
+                     "decode": _launch_s(engine, ("decode",), repeats // 2)}
+        for last in (True, False):
+            for decodes in (True, False):
+                plan, lengths = _mixed_plan(engine, b, last, decodes,
+                                            start=start, decode_len=decode_len)
+                host, dev, steps = [], [], []
+                for _ in range(repeats):
+                    engine.lengths = list(lengths)
+                    engine.timeline = []
+                    host.append(engine.execute(plan))
+                    marks, engine.timeline = engine.timeline, None
+                    dev.append(span_s(marks[0][0], marks[-1][1]))
+                    steps.append([span_s(s, e) for s, e in marks])
+                price = _iteration_price(sim.latency, points, b, decodes)
+                c_dec = alone[b]["decode"] if decodes else 0.0
+                c = alone[b]["chunk"] + c_dec
+                a, bb = float(np.median(host)), float(np.median(dev))
+                shapes.append({
+                    "bucket": b, "last": last, "decodes": decodes,
+                    "a": a, "b": bb,
+                    "in_iteration": [float(x) for x in np.median(steps, axis=0)],
+                    "c": c, "c_chunk": alone[b]["chunk"], "c_decode": c_dec,
+                    "d": price["raw_s"], "e": price["fit_s"],
+                    "terms": price["terms"], "calls": price["calls"],
+                    "fit_error": price["fit_s"] - price["raw_s"],
+                    "oracle_error": price["raw_s"] - c,
+                    "interaction": bb - c, "host": a - bb})
+    engine.reset()
+    return {"shapes": shapes, "alone": alone, "launch": launch,
+            "start": start, "decode_len": decode_len, "repeats": repeats}
 
 
 def _bias(pred: dict, real: dict, key: str) -> float:
@@ -2481,10 +2714,13 @@ def _sweep_scoring(store, cfg, device, *, config_fn, sched: SchedulerConfig,
 
 
 def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
-                   max_seq: int, calibration: dict, score: dict) -> dict:
+                   max_seq: int, calibration: dict, score: dict,
+                   mixed: dict = None) -> dict:
     """DoolySim for ``cfg`` on the store's DB, calibrated on one engine run;
     the score trace served twice on the engine (its self-noise) and
-    predicted by DoolySim (MAPE against the first run)."""
+    predicted by DoolySim (MAPE against the first run); then, with
+    ``mixed`` (``_mixed_decomposition``'s settings), the mixed iterations
+    taken apart on the same engine."""
     sim = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
                           backend=PROFILE_BACKEND)
     _require(not sim.latency.unprofiled_sigs(), "every call-graph signature "
@@ -2496,7 +2732,9 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
                       out_len=calibration["out_len"],
                       seed=calibration["seed"], vocab=cfg.vocab_size)
     engine.run(calib)
-    fit = sim.calibrate(engine.records)
+    calib_records = list(engine.records)
+    fit = sim.calibrate(calib_records)
+    calib_kinds = _iteration_kinds(calib_records)
     drift = [(_decode_ms(engine.records), _card_state(device))]
 
     def trace():
@@ -2518,9 +2756,26 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
                                  [r.t_start for r in engine.records]))
         if len(real) == 1:
             by_kind = _iteration_errors(sim, engine.records)
-            admitting = _admitting_errors(
-                sim, engine.records,
-                set(_admissions(served, runs[-1][1]).values()))
+            admitting_at = set(_admissions(served, runs[-1][1]).values())
+            admitting = _admitting_errors(sim, engine.records, admitting_at)
+            records_1 = list(engine.records)
+    points = {}
+    for sig, phase, t, r, c, us in store.db.measurements_for_hardware(
+            store.hardware):
+        points.setdefault((sig, phase), []).append((t, r, c, us))
+    if mixed:
+        t0 = time.perf_counter()
+        mixed = {**_mixed_decomposition(engine, sim, points, **mixed),
+                 "s": time.perf_counter() - t0}
+        # the fit's share: the same calibration and trace on the raw points
+        raw = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
+                              backend=PROFILE_BACKEND, latency="oracle")
+        raw_fit = raw.calibrate(calib_records)
+        raw_run = raw.run(trace())
+        mixed["raw"] = {
+            "fit": raw_fit,
+            "cmp": M.compare(M.request_metrics(raw_run["requests"]), real[0]),
+            "admitting": _admitting_errors(raw, records_1, admitting_at)}
     del engine
     _release(device)
     sim_run = sim.run(trace(), record_plans=True)
@@ -2547,11 +2802,8 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
     ttft_parts = {"noise": _parts_errors(parts[1], parts[0], moved["noise"]),
                   "sim": _parts_errors(sim_parts, parts[0], moved["sim"]),
                   "admitting": admitting}
-    points = {}
-    for sig, phase, t, r, c, us in store.db.measurements_for_hardware(
-            store.hardware):
-        points.setdefault((sig, phase), []).append((t, r, c, us))
-    return {"sim": sim, "trace": trace, "fit": fit, "drift": drift,
+    return {"model": cfg.name, "sim": sim, "trace": trace, "fit": fit,
+            "calibration_kinds": calib_kinds, "mixed": mixed, "drift": drift,
             "real": real, "iterations": iterations, "by_kind": by_kind,
             "noise": M.compare(real[1], real[0]), "sim_run": sim_run,
             "predicted": predicted, "cmp": cmp, "ttft_split": ttft,
@@ -2568,7 +2820,9 @@ def _print_scored(res: dict, calibration: dict, score: dict, floor_us=None):
     real, predicted, cmp = res["real"], res["predicted"], res["cmp"]
     print(f"  calibration on {calibration['n']} requests of "
           f"{calibration['prompt_len']} tokens: " + ", ".join(
-              f"{k} {v:.6g}" for k, v in res["fit"].items()))
+              f"{k} {v:.6g}" for k, v in res["fit"].items())
+          + "; its iterations by kind (bucket of the longest chunk): " + ", ".join(
+              f"{k} x{n}" for k, n in sorted(res["calibration_kinds"].items())))
     print(f"  score trace: ShareGPT-like, {score['n']} requests, rate "
           f"{score['rate']}/s, seed {score['seed']}, scale {score['scale']}; "
           f"engine makespans {real[0]['finish'][-1]:.4f}, "
@@ -2625,6 +2879,71 @@ def _print_scored(res: dict, calibration: dict, score: dict, floor_us=None):
               f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} "
               f"predicted (median), MAPE {v['mape']:.2f} %, bias {v['bias']:+.2f} %"
               for k, v in sorted(parts["admitting"].items())))
+    if res["mixed"]:
+        _print_mixed(res["model"], res["mixed"])
+
+
+def _ms(x: float) -> str:
+    return f"{x * 1e3:.3f}"
+
+
+def _print_mixed(model: str, mixed: dict):
+    """``[12 mixed]``: for each iteration shape its five readings (a)-(e) and
+    the four differences, which sum to DoolySim's error on (a); then each
+    chunk bucket's rows by group, raw against fitted."""
+    print(f"[12 mixed] {model}: one chunk in row 0 after {mixed['start']} cached "
+          f"tokens, the decode batch beside it ({mixed['decode_len']} tokens a "
+          f"row) or not; median of {mixed['repeats']} iterations, ms: (a) "
+          f"execute's host clock, (b) CUDA events from the first graph's start "
+          f"to the last's end [each graph's span in it], (c) the chunk graph "
+          f"and the decode graph each alone, (d) the DB's raw points, (e) "
+          f"DoolySim's price (overhead_s + chunk_overhead_s + chunk rows + "
+          f"decode_scale x decode rows); e-d the fit's error, d-c the oracle's "
+          f"against the engine's graphs, b-c the interaction, a-b the host's "
+          f"(% of (a)); {mixed['s']:.1f} s")
+    for sh in mixed["shapes"]:
+        t, calls = sh["terms"], sh["calls"]
+        d = " + ".join(_ms(calls[k]["raw"]) for k in ("chunk", "decode") if calls[k])
+        diffs = [("e-d", sh["fit_error"]), ("d-c", sh["oracle_error"]),
+                 ("b-c", sh["interaction"]), ("a-b", sh["host"])]
+        print(f"  {'mixed' if sh['decodes'] else 'chunk'} {sh['bucket']} "
+              f"{'last' if sh['last'] else 'not last'}: (a) {_ms(sh['a'])} (b) "
+              f"{_ms(sh['b'])} [{', '.join(_ms(x) for x in sh['in_iteration'])}] "
+              f"(c) {_ms(sh['c_chunk'])}"
+              + (f" + {_ms(sh['c_decode'])}" if sh["decodes"] else "")
+              + f" (d) {d} (e) {' + '.join(_ms(t[k]) for k in ('overhead', 'chunk_overhead', 'chunk', 'decode'))}"
+              f" = {_ms(sh['e'])}; " + ", ".join(
+                  f"{k} {x * 1e3:+.3f} ({100 * x / sh['a']:+.2f} %)" for k, x in diffs)
+              + f"; e-a {100 * (sh['e'] - sh['a']) / sh['a']:+.2f} %")
+    for b in sorted({sh["bucket"] for sh in mixed["shapes"]}):
+        _print_rows(f"chunk {b}", next(sh["calls"]["chunk"] for sh in mixed["shapes"]
+                                       if sh["bucket"] == b))
+    _print_rows("decode batch", next(sh["calls"]["decode"] for sh in mixed["shapes"]
+                                     if sh["decodes"]))
+    for b, graphs in mixed["launch"].items():
+        for k, v in graphs.items():
+            if v:
+                print(f"  {k} graph (bucket {b}'s readings): alone "
+                      f"{_ms(mixed['alone'][b][k])} ms behind a busy kernel, "
+                      f"{_ms(v['idle_s'])} ms launched on an idle card, its "
+                      f"launch call {_ms(v['host_s'])} ms on the host")
+    raw = mixed.get("raw")
+    if raw:
+        print(f"  DoolySim on the DB's raw points (the oracle backend, no fit), "
+              f"calibrated on the same run ({', '.join(f'{k} {v:.6g}' for k, v in raw['fit'].items())}): "
+              f"{_mapes(raw['cmp'])}; admitting iterations (kind, bucket): " + "; ".join(
+                  f"{k} x{v['n']}: {v['ms']:.3f} ms measured, {v['pred_ms']:.3f} "
+                  f"predicted, bias {v['bias']:+.2f} %"
+                  for k, v in sorted(raw["admitting"].items())))
+
+
+def _print_rows(what: str, call: dict):
+    print(f"  {what} rows by group, raw / fitted ms: " + ", ".join(
+        f"{g} {_ms(r)} / {_ms(f)}" for g, (r, f) in sorted(call["groups"].items()))
+        + f"; {call['calls']} timed calls, {call['exact']} of {call['rows']} "
+        f"rows at an exact DB key; the fit's largest row errors, ms: " + ", ".join(
+            f"{w['kind']} x{w['count']} at {tuple(w['key'])} "
+            f"{w['fit_minus_raw'] * 1e3:+.3f}" for w in call["worst"]))
 
 
 def _scored_summary(res: dict) -> dict:
@@ -2636,14 +2955,15 @@ def _scored_summary(res: dict) -> dict:
             "ttft_bias": _bias(res["predicted"], res["real"][0], "ttft"),
             "sim_iterations": len(res["sim_run"]["iterations"]),
             "ttft_split": res["ttft_split"], "ttft_parts": res["ttft_parts"],
-            "near_floor": res["near_floor"]}
+            "near_floor": res["near_floor"],
+            "calibration_kinds": res["calibration_kinds"], "mixed": res["mixed"]}
 
 
 def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                            sweep: SweepConfig, sched: SchedulerConfig,
                            max_seq: int, calibration: dict, score: dict,
                            shared_variant: str, scoring: dict,
-                           config_fn, db: str, also=()) -> dict:
+                           config_fn, db: str, also=(), mixed: dict = None) -> dict:
     """Dooly's loop: plan and profile ``cfgs`` (the first is the served
     model), calibrate DoolySim on one engine run, then serve the score trace
     twice on the engine and predict it; then sweep the served model on that
@@ -2653,7 +2973,8 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
     way.  Last, ``cfgs``' plan is built again: it must keep its id and find
     every task measured.  Kernel counts are zeroed just before each plan's
     execution and read after its last engine run.  ``db``: where the store
-    keeps its points."""
+    keeps its points; ``mixed``: ``[12 mixed]``'s settings, or None to skip
+    it."""
     cfg = cfgs[0]
     cuda = device.type == "cuda"
     fallbacks = fingerprint.fallbacks
@@ -2708,7 +3029,7 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
                   f"{calls_per_step} timed calls price one step of {cfg.name} "
                   f"({calls_per_step * floor_us / 1e3:.3f} ms of floor)")
         res = _engine_vs_sim(store, cfg, device, sched=sched, max_seq=max_seq,
-                             calibration=calibration, score=score)
+                             calibration=calibration, score=score, mixed=mixed)
         roof = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
                                latency="roofline")
         roof_run = roof.run(res["trace"]())
@@ -2741,7 +3062,7 @@ def phase_profile_simulate(cfgs, device, *, oracle: str, hardware: str,
             other_s = time.perf_counter() - t0
             other_res = _engine_vs_sim(store, other, device, sched=sched,
                                        max_seq=max_seq, calibration=calibration,
-                                       score=score)
+                                       score=score, mixed=mixed)
             other_counts = _counts()
             print(f"[12 profile->simulate] {other.name} through the same loop "
                   f"(planned after the timing above in {other_plan_s:.1f} s): "
@@ -2801,7 +3122,7 @@ def profile_simulate_main() -> int:
         hardware=default_hardware(), sweep=PROFILE_SWEEP,
         sched=SCHED, max_seq=MAX_SEQ, calibration=CALIBRATION, score=SCORE,
         shared_variant=SHARED_VARIANT, scoring=SCORING, config_fn=get_config,
-        db=str(PHASE12_DB), also=[get_config(MOE)])
+        db=str(PHASE12_DB), also=[get_config(MOE)], mixed=MIXED)
     print(RESULT_TAG + json.dumps(out))
     return 0
 

@@ -28,6 +28,11 @@ The engine clock advances by *measured model time* per iteration: host
 time around the iteration's work, closed by a device synchronize on the
 card.  A trace replay is therefore directly comparable with DoolySim, which
 advances the same clock by *predicted* time, driving the same Scheduler.
+
+With ``Engine.timeline`` set to a list, every step an iteration runs (a
+graph replay on the card, an eager step on the CPU) appends its start and
+end marks to it: CUDA events on the card, host-clock seconds on the CPU
+(``span_s`` reads a pair).  It is ``None`` unless a caller asks.
 """
 from __future__ import annotations
 
@@ -55,6 +60,23 @@ def bucket_chunk(c: int, chunk_size: int) -> int:
     while b < c:
         b *= 2
     return min(b, chunk_size) if c <= chunk_size else c
+
+
+def mark(device: torch.device):
+    """A point in time on ``device``'s work: a CUDA event recorded on the
+    current stream on the card, the host clock on the CPU."""
+    if device.type == "cuda":
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+    return time.perf_counter()
+
+
+def span_s(start, end) -> float:
+    """Seconds between two ``mark``s (the card's must have completed)."""
+    if isinstance(start, float):
+        return end - start
+    return start.elapsed_time(end) * 1e-3
 
 
 #: the kernel wrappers whose ``.launches`` a graph's replay adds to
@@ -117,6 +139,7 @@ class Engine:
         self.records: List[IterationRecord] = []
         self.graphs: Dict[tuple, StepGraph] = {}
         self._pool = None
+        self.timeline: Optional[List[tuple]] = None
         self.warmup()
 
     # ------------------------------------------------------------------
@@ -252,27 +275,37 @@ class Engine:
             toks[r.slot] = 1 + (r.generated % 7)
         return toks
 
+    def _marked(self, step: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """``step()``, its start and end marked on ``timeline`` if one is
+        kept."""
+        if self.timeline is None:
+            return step()
+        start = mark(self.device)
+        out = step()
+        self.timeline.append((start, mark(self.device)))
+        return out
+
     def _chunk_graph(self, chunk, length: int, ids: List[int]) -> torch.Tensor:
         g = self.graphs[("chunk", length, chunk.req.slot)]
         g.inputs["tokens"].copy_(torch.tensor([ids]))
         g.inputs["lengths"].fill_(chunk.start)
         g.inputs["last_pos"].fill_(chunk.length - 1)
-        return g.replay()
+        return self._marked(g.replay)
 
     def _chunk_eager(self, chunk, length: int, ids: List[int]) -> torch.Tensor:
-        return self.model.prefill_chunk(
+        return self._marked(lambda: self.model.prefill_chunk(
             self._row_cache(chunk.req.slot), [ids], self._ints([chunk.start]),
-            impl=self.impl, last_pos=self._ints([chunk.length - 1]))[0]
+            impl=self.impl, last_pos=self._ints([chunk.length - 1]))[0])
 
     def _decode_graph(self, toks: List[int]) -> torch.Tensor:
         g = self.graphs[("decode",)]
         g.inputs["tokens"].copy_(torch.tensor(toks))
         g.inputs["lengths"].copy_(torch.tensor(self.lengths, dtype=torch.int32))
-        return g.replay()
+        return self._marked(g.replay)
 
     def _decode_eager(self, toks: List[int]) -> torch.Tensor:
-        return self.model.decode_step(self.cache, toks, self._ints(self.lengths),
-                                      impl=self.impl)[0]
+        return self._marked(lambda: self.model.decode_step(
+            self.cache, toks, self._ints(self.lengths), impl=self.impl)[0])
 
     def execute(self, plan: IterationPlan) -> float:
         """Run one iteration plan; returns measured model seconds.  On the
