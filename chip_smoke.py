@@ -57,7 +57,9 @@ meshes (the dry run), and checks them, one line per phase:
              also at hymba-1.5b's Di = 3200 (prefill S=1024, decode B=8).
 4. serving — the Engine serves 8 requests (prompts of 128-1024 tokens, 32
              new tokens each) through the decode kernel, twice, replaying a
-             CUDA graph per step (captured outside the clock); decode-kernel
+             CUDA graph per step (each captured at warm-up, before any
+             clock; every serving phase prints its engine's warm-up seconds
+             and the graphs captured after it); decode-kernel
              launches must equal layers x decode iterations in each run and
              every logit must be finite; both makespans, their ratio, TTFT
              and TPOT are printed, and the device's idle share over one
@@ -124,8 +126,20 @@ meshes (the dry run), and checks them, one line per phase:
              a ShareGPT-like trace of 32 requests (seed 4) is served twice
              on the engine (its self-noise) and predicted by DoolySim:
              TTFT, TPOT and makespan MAPE, beside the roofline backend's
-             makespan.  It fails on a MAPE that is not finite, a DB point
-             missing, or a makespan MAPE above 25 %.  Then the same child
+             makespan.  The engine's warm-up seconds, graphs and peak
+             memory are printed; it then settles (Engine.settle: decode
+             replays until the decode graph alone has fallen 5 % or more,
+             from the slow state to the fast one, and holds within 1 %, at
+             most 30 s; on the H100 captures leave every graph kernel about
+             0.35 us slower until sustained graph work), and prints whether
+             it settled; the decode graph alone (behind a busy kernel) is
+             read after the settle and after each run, beside each run's
+             median decode-only iteration, and the summary marks whether
+             the three runs shared one state of the card (within 1 %);
+             each run must capture no graph after warm-up (the sweep's
+             engine below too).  It fails on a
+             MAPE that is not finite, a DB point missing, or a makespan
+             MAPE above 25 %.  Then the same child
              sweeps llama3-8b at full width on that DB (Sweep, uncalibrated,
              as the reference prices a grid: max_num_seqs {4, 8} x
              max_batch_tokens {256, 512}, chunks of 256, on the score
@@ -371,7 +385,7 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.serving import (Engine, Request, SchedulerConfig,  # noqa: E402
                                  bucket_chunk, build_context, phases_for)
-from repro_torch.serving.engine import mark, span_s  # noqa: E402
+from repro_torch.serving.engine import SETTLED, mark, span_s  # noqa: E402
 from repro_torch.serving.scheduler import IterationPlan, PrefillChunk  # noqa: E402
 from repro_torch.sim import metrics as M  # noqa: E402
 from repro_torch.train import (DataConfig, TokenStream,  # noqa: E402
@@ -1221,7 +1235,8 @@ def _serve(cfg, device, runs: int = 2) -> dict:
     out.update(requests=requests, lens=lens, counts=first["counts"],
                decode_iters=first["decode_iters"],
                peak=torch.cuda.max_memory_allocated(device) if cuda else 0,
-               graphs=len(engine.graphs))
+               graphs=len(engine.graphs), warmup_s=engine.warmup_s,
+               captures=engine.captures)
     out["idle"] = _idle_share(engine, requests, device)
     return out
 
@@ -1231,8 +1246,9 @@ def _print_runs(tag: str, run: dict, card: str):
     idle share."""
     spans = [r["makespan"] for r in run["runs"]]
     print(f"  makespans {', '.join(f'{x:.4f}' for x in spans)} s (engine clock; "
-          f"ratio {max(spans) / min(spans):.4f}), {run['graphs']} CUDA graphs "
-          f"(captured outside the clock); {card}")
+          f"ratio {max(spans) / min(spans):.4f}), {run['graphs']} CUDA graphs, "
+          f"warm-up {run['warmup_s']:.2f} s, {run['captures']} captured after "
+          f"it; {card}")
     for i, r in enumerate(run["runs"]):
         print(f"  run {i + 1}: ttft_s " + " ".join(f"{t:.4f}" for t in r["ttft"]))
         print(f"  run {i + 1}: tpot_s " + " ".join(f"{t:.5f}" for t in r["tpot"]))
@@ -1252,7 +1268,8 @@ def _run_summary(run: dict) -> dict:
             "ttft_s": [r["ttft"] for r in run["runs"]],
             "tpot_s": [r["tpot"] for r in run["runs"]],
             "idle": run["idle"], "peak_bytes": run["peak"],
-            "decode_iterations": run["decode_iters"]}
+            "decode_iterations": run["decode_iters"], "graphs": run["graphs"],
+            "warmup_s": run["warmup_s"], "captures": run["captures"]}
 
 
 def phase_serving(cfg, device) -> dict:
@@ -2542,6 +2559,49 @@ def _alone_s(engine, run, key, repeats: int) -> list:
     return [span_s(a, b) for a, b in marks]
 
 
+def _card_reading(engine) -> tuple:
+    """``Engine.decode_alone_ms`` (the decode graph alone, which tells which
+    of the card's per-kernel states the engine is in) and the MiB in use on
+    the card as the CUDA driver counts them (graphs and modules included; 0
+    off the card)."""
+    ms = engine.decode_alone_ms()
+    if engine.device.type != "cuda":
+        return ms, 0.0
+    free, total = torch.cuda.mem_get_info(engine.device)
+    return ms, (total - free) / 2**20
+
+
+def _settle_summary(engine, settled: bool) -> dict:
+    """What ``Engine.settle`` did: whether it settled, its seconds, its
+    readings and the reading warm-up took with the decode graph alone
+    captured (ms; None off the card)."""
+    return {"settled": settled, "settle_s": engine.settle_s,
+            "settle_ms": engine.settle_ms, "first_alone_ms": engine.first_alone_ms}
+
+
+def _settle_text(warm: dict) -> str:
+    if warm["first_alone_ms"] is None:
+        return "no settle off the card"
+    ms = warm["settle_ms"]
+    return (f"the decode graph alone {warm['first_alone_ms']:.3f} ms with only "
+            f"itself captured, {ms[0]:.3f} ms after warm-up; Engine.settle "
+            + ("settled" if warm["settled"] else "saw no fall to the fast state "
+               "(fast throughout, or slow throughout)")
+            + f" in {warm['settle_s']:.1f} s ({len(ms)} readings, the last "
+            f"{ms[-1]:.3f} ms)")
+
+
+def _spread(values: list) -> float:
+    """(max - min) / min."""
+    return (max(values) - min(values)) / min(values)
+
+
+def _set_counts(counts: tuple):
+    """Put back the kernel launch counts ``_counts`` returned."""
+    (da.decode_attention.launches, fa.flash_attention_fwd.launches,
+     fa.flash_attention_bwd.launches, ms.mamba_scan.launches) = counts
+
+
 def _launch_s(engine, key, repeats: int) -> dict:
     """The engine's graph ``key`` launched on an idle card, ``repeats``
     times: the median device span from an event recorded just before the
@@ -2586,7 +2646,7 @@ def _mixed_decomposition(engine, sim, points, *, buckets, start: int,
                                     decode_len=decode_len)
         chunk = plan.prefills[0]
         engine.lengths = list(lengths)
-        engine.execute(plan)            # captures the chunk graph if it is new
+        engine.execute(plan)
         engine.lengths = list(lengths)
         ids, toks = chunk.req.prompt[start:start + b], engine._decode_tokens(plan)
         alone[b] = {
@@ -2642,9 +2702,9 @@ def _sweep_scoring(store, cfg, device, *, config_fn, sched: SchedulerConfig,
     """The sweep on phase 12's DB: ``cfg`` (registered as
     ``PROFILE_MODELS[0]``) over ``scoring``'s scheduler specs on the score
     trace, priced by Sweep with no calibration, as the reference's sweep
-    prices a grid.  Then the engine serves the ``served`` scenario once, and
-    the sweep's own DoolySim for it is scored against that run bare and with
-    phase 12's calibration terms ``fit`` applied."""
+    prices a grid.  Then the engine settles and serves the ``served``
+    scenario once, and the sweep's own DoolySim for it is scored against
+    that run bare and with phase 12's calibration terms ``fit`` applied."""
     model = PROFILE_MODELS[0]
     _require(config_fn(model) == cfg, f"{model} resolves to the served config")
     specs = [SchedSpec(s, t, scoring["chunk"], sched.prefix_caching)
@@ -2667,7 +2727,12 @@ def _sweep_scoring(store, cfg, device, *, config_fn, sched: SchedulerConfig,
     row = out.results[grid.index(scn)]
     engine = Engine(cfg, sched_config=served.to_config(), max_seq=max_seq,
                     impl=PROFILE_BACKEND, seed=0, device=device)
+    settled = engine.settle()
     real = M.request_metrics(engine.run(workload.build())["requests"])
+    warm = {"warmup_s": engine.warmup_s, "graphs": len(engine.graphs),
+            "captures": engine.captures, **_settle_summary(engine, settled)}
+    _require(engine.captures == 0, f"the sweep's engine captured no graph after "
+             f"warm-up ({engine.captures})")
     del engine
     _release(device)
     sim = sweep.sim(scn)
@@ -2697,7 +2762,9 @@ def _sweep_scoring(store, cfg, device, *, config_fn, sched: SchedulerConfig,
               f"cost {r.cost:.4f}")
     print(f"  engine served {served.label()} once: makespan "
           f"{real['finish'][-1]:.4f} s, TTFT mean {real['ttft'].mean():.5f} s, "
-          f"TPOT mean {real['tpot'].mean():.6f} s; {_card(device)}")
+          f"TPOT mean {real['tpot'].mean():.6f} s; warm-up {warm['warmup_s']:.2f} "
+          f"s, {warm['graphs']} CUDA graphs, {_settle_text(warm)}, "
+          f"{warm['captures']} captured after warm-up; {_card(device)}")
     for k in forms:
         terms = ("" if k == "uncalibrated" else " (" + ", ".join(
             f"{n} {v:.6g}" for n, v in fit.items()) + ")")
@@ -2710,7 +2777,7 @@ def _sweep_scoring(store, cfg, device, *, config_fn, sched: SchedulerConfig,
     return {"scenarios": len(grid), "sweep_s": sweep_s, "summary": out.summary,
             "served": served.label(),
             "engine_makespan_s": float(real["finish"][-1]),
-            "mape": cmp, "bias": bias}
+            "mape": cmp, "bias": bias, **warm}
 
 
 def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
@@ -2720,13 +2787,31 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
     the score trace served twice on the engine (its self-noise) and
     predicted by DoolySim (MAPE against the first run); then, with
     ``mixed`` (``_mixed_decomposition``'s settings), the mixed iterations
-    taken apart on the same engine."""
+    taken apart on the same engine (its kernel launches not counted).  The
+    engine settles (``Engine.settle``) before the calibration run; the
+    decode graph alone (``_card_reading``) is read after the settle and
+    after each run, and every run must capture no graph after warm-up."""
     sim = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
                           backend=PROFILE_BACKEND)
     _require(not sim.latency.unprofiled_sigs(), "every call-graph signature "
              f"of {cfg.name} has DB points ({sim.latency.unprofiled_sigs()})")
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     engine = Engine(cfg, sched_config=sched, max_seq=max_seq,
                     impl=PROFILE_BACKEND, seed=0, device=device)
+    warm = {"warmup_s": engine.warmup_s, "graphs": len(engine.graphs),
+            "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else 0,
+            "state_len": engine.state_len}
+    warm.update(_settle_summary(engine, engine.settle()))
+    alone = [_card_reading(engine)]
+    captures = []
+
+    def after_run():
+        captures.append(engine.captures)
+        _require(engine.captures == 0, f"{cfg.name}'s engine captured no "
+                 f"graph after warm-up by run {len(captures)} ({captures})")
+        alone.append(_card_reading(engine))
     calib = synthetic(calibration["n"], rate=calibration["rate"],
                       prompt_len=calibration["prompt_len"],
                       out_len=calibration["out_len"],
@@ -2736,6 +2821,7 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
     fit = sim.calibrate(calib_records)
     calib_kinds = _iteration_kinds(calib_records)
     drift = [(_decode_ms(engine.records), _card_state(device))]
+    after_run()
 
     def trace():
         return sharegpt_like(score["n"], rate=score["rate"], seed=score["seed"],
@@ -2759,14 +2845,16 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
             admitting_at = set(_admissions(served, runs[-1][1]).values())
             admitting = _admitting_errors(sim, engine.records, admitting_at)
             records_1 = list(engine.records)
+        after_run()
     points = {}
     for sig, phase, t, r, c, us in store.db.measurements_for_hardware(
             store.hardware):
         points.setdefault((sig, phase), []).append((t, r, c, us))
     if mixed:
-        t0 = time.perf_counter()
+        t0, counts = time.perf_counter(), _counts()
         mixed = {**_mixed_decomposition(engine, sim, points, **mixed),
                  "s": time.perf_counter() - t0}
+        _set_counts(counts)     # its launches are readings, not served work
         # the fit's share: the same calibration and trace on the raw points
         raw = store.simulator(cfg, sched_config=sched, max_seq=max_seq,
                               backend=PROFILE_BACKEND, latency="oracle")
@@ -2804,6 +2892,7 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
                   "admitting": admitting}
     return {"model": cfg.name, "sim": sim, "trace": trace, "fit": fit,
             "calibration_kinds": calib_kinds, "mixed": mixed, "drift": drift,
+            "alone_ms": alone, "captures": captures, "warm": warm,
             "real": real, "iterations": iterations, "by_kind": by_kind,
             "noise": M.compare(real[1], real[0]), "sim_run": sim_run,
             "predicted": predicted, "cmp": cmp, "ttft_split": ttft,
@@ -2812,12 +2901,19 @@ def _engine_vs_sim(store, cfg, device, *, sched: SchedulerConfig,
 
 
 def _print_scored(res: dict, calibration: dict, score: dict, floor_us=None):
-    """The calibration, the engine's and DoolySim's makespans, the
-    iterations by kind and the near-floor share of a predicted decode
-    iteration (``floor_us``: the oracle's launch floor, or None), the
-    drift, the self-noise and the MAPEs, and TTFT apart over the requests
-    whose admission moved."""
+    """The engine's warm-up, the calibration, the engine's and DoolySim's
+    makespans, the iterations by kind and the near-floor share of a
+    predicted decode iteration (``floor_us``: the oracle's launch floor, or
+    None), the drift and the decode graph alone around the runs, the
+    self-noise and the MAPEs, and TTFT apart over the requests whose
+    admission moved."""
     real, predicted, cmp = res["real"], res["predicted"], res["cmp"]
+    warm = res["warm"]
+    print(f"  engine warm-up {warm['warmup_s']:.2f} s: {warm['graphs']} CUDA "
+          f"graphs, peak memory {warm['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{_settle_text(warm)}; graphs captured after warm-up in the "
+          f"calibration run and score runs 1 and 2: "
+          f"{', '.join(str(n) for n in res['captures'])}")
     print(f"  calibration on {calibration['n']} requests of "
           f"{calibration['prompt_len']} tokens: " + ", ".join(
               f"{k} {v:.6g}" for k, v in res["fit"].items())
@@ -2850,6 +2946,18 @@ def _print_scored(res: dict, calibration: dict, score: dict, floor_us=None):
     print("  median decode-only iteration, calibration run and score runs 1 "
           "and 2, with the card's SM clock, power and temperature after each: "
           + "; ".join(f"{ms:.3f} ms ({state})" for ms, state in res["drift"]))
+    alone = [ms for ms, _ in res["alone_ms"]]
+    spread = _spread(alone)
+    print(f"  decode graph alone (Engine.decode_alone_ms: {warm['state_len']} "
+          f"tokens a row, behind a busy kernel, median of 10) after the settle and "
+          f"after the calibration run and score runs 1 and 2: "
+          + ", ".join(f"{ms:.3f}" for ms in alone)
+          + f" ms; spread {100 * spread:.2f} % ("
+          + ("on the host clock" if warm["first_alone_ms"] is None else
+             "one state of the card" if spread <= SETTLED else
+             "MORE THAN ONE STATE: the runs are compared across states")
+          + "); MiB in use on the card at each: "
+          + ", ".join(f"{mib:.1f}" for _, mib in res["alone_ms"]))
     print(f"  engine self-noise (run 2 vs run 1): {_mapes(res['noise'])}")
     print(f"  DoolySim vs the engine: {_mapes(cmp)}; paper bars TTFT 5 %, "
           f"TPOT 8 %: " + ", ".join(
@@ -2952,6 +3060,12 @@ def _scored_summary(res: dict) -> dict:
             "engine_iterations": res["iterations"],
             "iteration_errors": res["by_kind"],
             "decode_ms": [ms for ms, _ in res["drift"]],
+            "decode_alone_ms": [ms for ms, _ in res["alone_ms"]],
+            "card_mib": [mib for _, mib in res["alone_ms"]],
+            "one_state": (res["warm"]["first_alone_ms"] is not None and
+                          _spread([ms for ms, _ in res["alone_ms"]]) <= SETTLED),
+            "captures": res["captures"],
+            "warmup": res["warm"],
             "ttft_bias": _bias(res["predicted"], res["real"][0], "ttft"),
             "sim_iterations": len(res["sim_run"]["iterations"]),
             "ttft_split": res["ttft_split"], "ttft_parts": res["ttft_parts"],
@@ -3924,8 +4038,8 @@ def _argmaxes(engine) -> list:
 def phase_mesh_serving(cfg, device, mesh) -> dict:
     """The same model code on the card under a mesh: the Engine serves the
     phase-4 requests once outside and once inside ``use_mesh(mesh,
-    SERVE_RULES)`` (graphs captured by the first run, replayed by the
-    second), then a prefill of PREFILL_LEN tokens each way; the tokens,
+    SERVE_RULES)`` (graphs captured at the engine's warm-up, outside the
+    mesh), then a prefill of PREFILL_LEN tokens each way; the tokens,
     logits and kernel launches must be equal.  The dry run's per-device
     parameter bytes on ``mesh`` must be the bytes the card holds."""
     from contextlib import nullcontext
@@ -3981,7 +4095,9 @@ def phase_mesh_serving(cfg, device, mesh) -> dict:
           f"kernel launches (decode, flash fwd, flash bwd, scan) serving "
           f"{plain['serve']} both times, prefill of {PREFILL_LEN} tokens "
           f"{plain['prefill']} both times, logits equal; makespans "
-          f"{plain['makespan']:.4f} / {meshed['makespan']:.4f} s; parameter "
+          f"{plain['makespan']:.4f} / {meshed['makespan']:.4f} s; warm-up "
+          f"{engine.warmup_s:.2f} s, {len(engine.graphs)} CUDA graphs, "
+          f"{engine.captures} captured after it; parameter "
           f"bytes per device {dry} (dry run on the host mesh) == {held} "
           f"(held on the card); {_card(device)}")
     out = {"decode_launches": plain["serve"][0] + meshed["serve"][0],

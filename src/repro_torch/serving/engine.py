@@ -9,15 +9,27 @@ configs with SSM state, whose chunks run at their exact length.  A chunk
 runs on a view of its row of the cache and writes into it in place.
 
 On the card every step runs as a CUDA graph, the counterpart of the
-reference's jit-compiled programs: one graph for the decode step, captured
-at warm-up, and one per (chunk shape, cache row), captured the first time
-the plan asks for it and before that iteration's clock starts.  Each graph
-is launched once when it is captured, since a graph's first launch also
-uploads it to the card.  Inputs go
-through static device buffers (tokens, lengths and the chunk's ``last_pos``)
-and the logits come back in the graph's static output.  A step that cannot
-be captured raises; there is no eager fallback on the card.  CPU tensors run
-the same steps eagerly, since CPU graphs do not exist.
+reference's jit-compiled programs, and as the reference compiles the decode
+program and every chunk bucket in ``warmup``, the engine captures its graphs
+there, before any clock starts: the decode step's, and for a config whose
+chunks are bucketed one per (bucket, cache row) (``warmup_keys``).  Each
+graph is launched once when it is captured, since a graph's first launch
+also uploads it to the card.  Capturing all of them up front keeps the
+port's own capture events out of served runs: on the H100 every kernel of
+every graph runs about 0.35 us slower in one of two states of the card,
+and a capture flipped that state in 8 of 66 tries, a clone of a cache row
+in 3 of 66, while 2176 iterations served from graphs captured up front
+flipped it in none (``examples/torch_graph_state.py``); ``Engine.settle``
+waits for the end of the slow state the captures leave, and tells whether
+it saw it.  Configs with SSM state run exact-length chunks, whose (length,
+row) graphs cannot all be captured up front; each is captured the first
+time a plan asks for it, before that iteration's clock starts (the
+reference too compiles such a chunk on first use).  ``Engine.captures`` counts the graphs captured after warm-up.
+Inputs go through static device buffers (tokens, lengths and the chunk's
+``last_pos``) and the logits come back in the graph's static output.  A
+step that cannot be captured raises; there is no eager fallback on the
+card.  CPU tensors run the same steps eagerly, since CPU graphs do not
+exist.
 
 The kernel wrappers count their launches when a graph is captured, not when
 it replays; the engine keeps each graph's captured launches apart and adds
@@ -36,6 +48,7 @@ end marks to it: CUDA events on the card, host-clock seconds on the CPU
 """
 from __future__ import annotations
 
+import statistics
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -43,6 +56,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backends import BUSY_CYCLES
 from repro_torch.core.device import Device, resolve_device, synchronize
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -60,6 +74,52 @@ def bucket_chunk(c: int, chunk_size: int) -> int:
     while b < c:
         b *= 2
     return min(b, chunk_size) if c <= chunk_size else c
+
+
+#: the tokens a row of ``Engine.decode_alone_ms`` holds (fewer if
+#: ``max_seq`` is shorter)
+STATE_LEN = 384
+#: ``Engine.decode_alone_ms``: seconds of back-to-back decode replays before
+#: the timed ones
+PRIME_S = 1.0
+#: ``Engine.settle``: the least fall between two readings that is a flip of
+#: the card's state (the H100's two states differ by 8-9 %), how far above
+#: the least reading the last two may lie, and the seconds it gives up after
+FLIP = 0.05
+SETTLED = 0.01
+SETTLE_LIMIT_S = 30.0
+
+
+def settled(readings: List[float]) -> bool:
+    """``Engine.settle``'s rule on its readings so far (ms, oldest first):
+    one reading lies at least ``FLIP`` below an earlier one, so the card
+    went from the slow state to the fast one, and the last two lie within
+    ``SETTLED`` of the least.  A card that was fast at every reading never
+    passes: the rule cannot tell that from one that stayed slow."""
+    if len(readings) < 2:
+        return False
+    fell = any(r <= (1 - FLIP) * max(readings[:i])
+               for i, r in enumerate(readings) if i)
+    return fell and max(readings[-2:]) <= (1 + SETTLED) * min(readings)
+
+
+def chunk_buckets(chunk_size: int) -> List[int]:
+    """The chunk lengths a bucketed config runs: the image of
+    ``bucket_chunk`` over 1..``chunk_size``, which holds ``chunk_size``
+    itself when it is not a power of two."""
+    return sorted({bucket_chunk(c, chunk_size) for c in range(1, chunk_size + 1)})
+
+
+def warmup_keys(cfg: ModelConfig, sched_config: SchedulerConfig) -> List[tuple]:
+    """The step graphs an engine captures at warm-up on the card: the decode
+    step's, and for a config without SSM state one chunk graph per bucket
+    and cache row.  A config with SSM state runs exact-length chunks, whose
+    graphs are captured on first use."""
+    keys = [("decode",)]
+    if cfg.ssm_state == 0:
+        keys += [("chunk", b, slot) for b in chunk_buckets(sched_config.chunk_size)
+                 for slot in range(sched_config.max_num_seqs)]
+    return keys
 
 
 def mark(device: torch.device):
@@ -131,6 +191,7 @@ class Engine:
         self.model.requires_grad_(False)
         self.sched = Scheduler(sched_config)
         self.max_seq = max_seq
+        self.state_len = min(STATE_LEN, max_seq - 1)
         self.impl = impl
         r = sched_config.max_num_seqs
         self.cache: Cache = self.model.zero_cache(r, max_seq, use_ring=False)
@@ -138,6 +199,7 @@ class Engine:
         self.clock = 0.0
         self.records: List[IterationRecord] = []
         self.graphs: Dict[tuple, StepGraph] = {}
+        self.captures = 0           # graphs captured after warm-up
         self._pool = None
         self.timeline: Optional[List[tuple]] = None
         self.warmup()
@@ -151,21 +213,97 @@ class Engine:
         """Run the decode step and every chunk bucket once, so that kernel
         builds (the scan kernel's too, through the decode step of an SSM
         config), library set-up and allocator growth land outside timed
-        iterations; the cache is zeroed afterwards.  On the card the decode
-        step's graph is captured here and launched once."""
+        iterations.  On the card, capture and launch once every graph of
+        ``warmup_keys``, as the reference compiles every bucket up front:
+        on the H100 a capture can flip the card into a state where every
+        graph kernel runs about 0.35 us slower, or back (the module
+        docstring), and a run must not change state partway because of
+        the engine.  The decode graph is captured first and read alone
+        (``decode_alone_ms``) before any other graph exists:
+        ``first_alone_ms``, the first reading ``settle`` compares.  The
+        cache is zeroed afterwards, which also undoes the chunk graphs'
+        first launches; ``warmup_s`` keeps the wall seconds all of it
+        took."""
+        t0 = time.perf_counter()
         r = self.sched.config.max_num_seqs
         self.model.decode_step(self.cache, [0] * r, self._ints(self.lengths),
                                impl=self.impl)
-        b = 8
-        while b <= self.sched.config.chunk_size:
+        for b in chunk_buckets(self.sched.config.chunk_size):
             self.model.prefill_chunk(self._row_cache(0), [[0] * b],
                                      self._ints([0]), impl=self.impl,
                                      last_pos=self._ints([0]))
-            b *= 2
+        self.first_alone_ms = None
         if self.device.type == "cuda":
-            self._step_graph(("decode",)).graph.replay()    # its first launch
+            for key in warmup_keys(self.cfg, self.sched.config):
+                self._new_graph(key).graph.replay()     # its first launch
+                if key == ("decode",):
+                    self.first_alone_ms = self.decode_alone_ms()
         self._zero_cache()
         synchronize(self.device)
+        self.warmup_s = time.perf_counter() - t0
+
+    def decode_alone_ms(self, repeats: int = 10) -> float:
+        """The decode step alone, every row ``state_len`` tokens into a
+        zeroed cache, ``repeats`` times; the median ms.  On the card its
+        graph is first replayed back to back for ``PRIME_S`` (on the H100 a
+        reading taken right after other graphs ran lies about 1 % above one
+        taken after decode replays, in either state of the card), then
+        ``repeats`` times, each replay behind a busy kernel (so that no
+        launch is timed) between two CUDA events; no replay counts a kernel
+        launch.  On the H100 the reading tells which of the card's two
+        per-kernel states the engine is in.  On the CPU the eager step runs
+        on the host clock.  The engine is ``reset`` before and after, since
+        the steps write into the cache."""
+        self.reset()
+        rows = self.sched.config.max_num_seqs
+        on_card = self.device.type == "cuda"
+        if on_card:
+            g = self.graphs[("decode",)]
+            g.inputs["tokens"].fill_(1)
+            g.inputs["lengths"].fill_(self.state_len)
+            step = g.graph.replay
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < PRIME_S:
+                for _ in range(10):
+                    step()
+                synchronize(self.device)
+        else:
+            self.lengths = [self.state_len] * rows
+            step = lambda: self._decode_eager([1] * rows)      # noqa: E731
+        marks = []
+        for _ in range(repeats):
+            if on_card:
+                torch.cuda._sleep(BUSY_CYCLES)
+            start = mark(self.device)
+            step()
+            marks.append((start, mark(self.device)))
+        synchronize(self.device)
+        self.reset()
+        return statistics.median(span_s(a, b) for a, b in marks) * 1e3
+
+    def settle(self, limit_s: float = SETTLE_LIMIT_S) -> bool:
+        """Read the decode graph alone (``decode_alone_ms``, whose priming
+        replays it back to back) until the readings, warm-up's
+        ``first_alone_ms`` first, have ``settled`` or ``limit_s`` seconds
+        have passed; then ``reset``.  Returns whether it settled;
+        ``settle_ms`` keeps the readings and ``settle_s`` the seconds.  On
+        the H100 captures usually leave every graph kernel about 0.35 us
+        slower (8-9 % of a decode graph), and sustained graph work ends
+        that state: 6 of 6 llama3-8b engines left it within 11 s of decode
+        replays, and none went back while serving
+        (``examples/torch_graph_state.py``).  A caller that times runs
+        against each other settles first, so that they start in the state
+        they end in.  False also when the card was fast at every reading,
+        which no reading can tell from slow.  Nothing runs on the CPU."""
+        t0 = time.perf_counter()
+        self.settle_ms: List[float] = []
+        done = self.device.type != "cuda"
+        while not done and time.perf_counter() - t0 < limit_s:
+            self.settle_ms.append(self.decode_alone_ms())
+            done = settled([self.first_alone_ms] + self.settle_ms)
+        self.reset()
+        self.settle_s = time.perf_counter() - t0
+        return done
 
     def _zero_cache(self):
         for c in self.cache:
@@ -174,8 +312,8 @@ class Engine:
 
     def reset(self):
         """Back to an empty engine (zeroed cache, lengths, clock, records and
-        a fresh scheduler) that keeps its weights and captured graphs, so
-        that a workload can be served again."""
+        a fresh scheduler) that keeps its weights, its captured graphs and
+        their count, so that a workload can be served again."""
         self._zero_cache()
         synchronize(self.device)
         self.sched = Scheduler(self.sched.config)
@@ -191,14 +329,13 @@ class Engine:
     # CUDA graphs
     # ------------------------------------------------------------------
 
-    def _step_graph(self, key: tuple) -> StepGraph:
-        """The graph of ``key``: ``("decode",)``, or ``("chunk", length,
-        slot)`` for a prefill chunk of ``length`` tokens (bucketed, or exact
-        for SSM configs) on cache row ``slot``; captured on first use.  A
-        chunk runs on views of its row of the cache, so its graph is tied to
-        the row."""
-        if key in self.graphs:
-            return self.graphs[key]
+    def _step(self, key: tuple) -> Tuple[Callable[[], torch.Tensor],
+                                         Dict[str, torch.Tensor]]:
+        """The step of ``key`` and its static inputs: ``("decode",)``, or
+        ``("chunk", length, slot)`` for a prefill chunk of ``length`` tokens
+        (bucketed, or exact for SSM configs) on cache row ``slot``.  A chunk
+        runs on views of its row of the cache, so its graph is tied to the
+        row."""
         if key[0] == "decode":
             r = self.sched.config.max_num_seqs
             inputs = {"tokens": torch.zeros(r, dtype=torch.long, device=self.device),
@@ -208,30 +345,46 @@ class Engine:
             def step():
                 return self.model.decode_step(self.cache, inputs["tokens"],
                                               inputs["lengths"], impl=self.impl)[0]
-        else:
-            _, length, slot = key
-            inputs = {"tokens": torch.zeros((1, length), dtype=torch.long,
-                                            device=self.device),
-                      "lengths": torch.zeros(1, dtype=torch.int32, device=self.device),
-                      "last_pos": torch.zeros(1, dtype=torch.int32,
-                                              device=self.device)}
-            row = self._row_cache(slot)
+            return step, inputs
+        _, length, slot = key
+        inputs = {"tokens": torch.zeros((1, length), dtype=torch.long,
+                                        device=self.device),
+                  "lengths": torch.zeros(1, dtype=torch.int32, device=self.device),
+                  "last_pos": torch.zeros(1, dtype=torch.int32,
+                                          device=self.device)}
+        row = self._row_cache(slot)
 
-            def step():
-                return self.model.prefill_chunk(
-                    row, inputs["tokens"], inputs["lengths"], impl=self.impl,
-                    last_pos=inputs["last_pos"])[0]
-        self.graphs[key] = g = self._capture(key, step, inputs)
-        if key[0] == "chunk":
-            # a graph's first launch uploads it to the card, which a timed
-            # iteration must not pay: launch it here on the row it writes,
-            # then put the row back (the decode graph's is at warm-up)
-            saved = [{k: t.clone() for k, t in c.items()} for c in row]
-            g.graph.replay()
-            for c, kept in zip(row, saved):
-                for k, t in c.items():
-                    t.copy_(kept[k])
-            synchronize(self.device)    # all of it before the clock starts
+        def step():
+            return self.model.prefill_chunk(
+                row, inputs["tokens"], inputs["lengths"], impl=self.impl,
+                last_pos=inputs["last_pos"])[0]
+        return step, inputs
+
+    def _new_graph(self, key: tuple) -> StepGraph:
+        """Capture the graph of ``key`` (nothing runs) and keep it."""
+        self.graphs[key] = g = self._capture(key, *self._step(key))
+        return g
+
+    def _graph(self, key: tuple) -> StepGraph:
+        """The graph an iteration replays for ``key``.  A bucketed config's
+        graphs all exist after warm-up, so a missing one is an error; a
+        config with SSM state captures an exact-length chunk's graph here on
+        first use, before the iteration's clock starts, and launches it
+        once on the row it writes, then puts the row back."""
+        if key in self.graphs:
+            return self.graphs[key]
+        if self.cfg.ssm_state == 0:
+            raise KeyError(f"Engine: no graph for step {key}: a config with "
+                           f"bucketed chunks captures every graph at warm-up")
+        g = self._new_graph(key)
+        self.captures += 1
+        row = self._row_cache(key[2])
+        saved = [{k: t.clone() for k, t in c.items()} for c in row]
+        g.graph.replay()        # its first launch, which also uploads it
+        for c, kept in zip(row, saved):
+            for k, t in c.items():
+                t.copy_(kept[k])
+        synchronize(self.device)    # all of it before the clock starts
         return g
 
     def _capture(self, key: tuple, step: Callable[[], torch.Tensor],
@@ -309,12 +462,13 @@ class Engine:
 
     def execute(self, plan: IterationPlan) -> float:
         """Run one iteration plan; returns measured model seconds.  On the
-        card the iteration replays graphs, any missing one captured before
-        the clock starts; CPU tensors run eagerly."""
+        card the iteration replays graphs (an SSM config's new chunk graph
+        captured before the clock starts, ``_graph``); CPU tensors run
+        eagerly."""
         on_card = self.device.type == "cuda"
         if on_card:
             for chunk in plan.prefills:
-                self._step_graph(("chunk", self._chunk_len(chunk), chunk.req.slot))
+                self._graph(("chunk", self._chunk_len(chunk), chunk.req.slot))
         run_chunk = self._chunk_graph if on_card else self._chunk_eager
         run_decode = self._decode_graph if on_card else self._decode_eager
         t0 = time.perf_counter()

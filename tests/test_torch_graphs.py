@@ -9,13 +9,19 @@ the engine with its two step methods taken from the eager path.
 On the CPU the engine runs eagerly (there are no CPU graphs); the tests
 here that need no card check the graph keys and the launch bookkeeping.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.serving import Engine, Request, SchedulerConfig
 from repro_torch.serving import engine as engine_mod
+from repro_torch.workload import sharegpt_like, synthetic
+
+ROOT = Path(__file__).resolve().parents[1]
 
 SCHED = dict(max_num_seqs=4, max_batch_tokens=64, chunk_size=32)
 SPECS = [(40, 5), (9, 3), (57, 2), (23, 6), (31, 1), (14, 4)]
@@ -159,13 +165,94 @@ def test_gpu_graph_engine_matches_eager_steps(cuda, arch, dtype):
 
 @pytest.mark.gpu
 def test_gpu_graphs_are_captured_outside_the_clock(cuda):
-    """A step's first use captures its graph before the iteration's clock
-    starts, so the first iteration is not slower than a later one by a
-    capture's time; every plan's graph exists when the run ends."""
+    """A bucketed config's engine holds every graph of ``warmup_keys`` once
+    it is built, so serving captures none: the first iteration is not
+    slower than a later one by a capture's time, and serving twice adds no
+    key and no capture."""
     cfg = get_smoke_config("llama3-8b")
+    eng = Engine(cfg, sched_config=SchedulerConfig(**SCHED), max_seq=128,
+                 impl="kernel", seed=0, device=cuda)
+    keys = engine_mod.warmup_keys(cfg, eng.sched.config)
+    assert sorted(eng.graphs) == sorted(keys) and eng.captures == 0
+    assert len(keys) == 1 + 3 * SCHED["max_num_seqs"]     # buckets 8, 16, 32
+    for _ in range(2):
+        eng.reset()
+        eng.run(_requests(cfg))
+        assert sorted(eng.graphs) == sorted(keys) and eng.captures == 0
+    assert all(r.model_s < 1.0 for r in eng.records)
+
+
+@pytest.mark.gpu
+def test_gpu_ssm_chunk_graphs_are_captured_on_first_use(cuda):
+    """A config with SSM state holds only the decode graph after warm-up;
+    each exact-length chunk graph is captured the first time a plan asks
+    for it, and serving the trace again captures none."""
+    cfg = get_smoke_config("falcon-mamba-7b")
     eng, _ = _serve(Engine, cfg, cuda)
     n = len(eng.graphs)
+    assert eng.captures == n - 1 > 0
     eng.reset()
     eng.run(_requests(cfg))
-    assert len(eng.graphs) == n                  # nothing new to capture
-    assert all(r.model_s < 1.0 for r in eng.records)
+    assert len(eng.graphs) == n and eng.captures == n - 1
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _state_readings() -> dict:
+    """llama3-8b at full width on phase 12's engine (every graph captured
+    at warm-up, then ``Engine.settle``): its calibration trace, then its
+    score trace twice, with the decode graph alone read after the settle
+    and after each run (ms).  The engine is freed before anything is
+    asserted on the readings, so that a failure does not keep its 18 GB for
+    the tests after it."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3-8b")
+    eng = Engine(cfg, sched_config=cs.SCHED, max_seq=cs.MAX_SEQ,
+                 impl=cs.PROFILE_BACKEND, seed=0, device="cuda")
+    try:
+        keys = sorted(eng.graphs) == sorted(engine_mod.warmup_keys(cfg, cs.SCHED))
+        settled = eng.settle()
+        c, s = cs.CALIBRATION, cs.SCORE
+        traces = [synthetic(c["n"], rate=c["rate"], prompt_len=c["prompt_len"],
+                            out_len=c["out_len"], seed=c["seed"],
+                            vocab=cfg.vocab_size)]
+        traces += [sharegpt_like(s["n"], rate=s["rate"], seed=s["seed"],
+                                 scale=s["scale"], vocab=cfg.vocab_size)
+                   for _ in range(2)]
+        alone = [eng.decode_alone_ms()]
+        for trace in traces:
+            eng.reset()
+            eng.run(trace)
+            alone.append(eng.decode_alone_ms())
+        return {"warmup_keys": keys, "captures": eng.captures,
+                "settled": settled, "settle_s": eng.settle_s,
+                "settle_ms": eng.settle_ms, "first_ms": eng.first_alone_ms,
+                "alone_ms": alone}
+    finally:
+        del eng
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_gpu_phase12_runs_share_one_state_of_the_card(cuda):
+    """``_state_readings``: after ``Engine.settle`` (which replays the decode
+    graph until it has fallen from the card's slow per-kernel state to the
+    fast one and holds, or 30 s), the decode graph alone read after the
+    settle and after each of phase 12's three runs agrees within 1 %, so no
+    run moves the card to the other state (``examples/torch_graph_state.py``)."""
+    out = _state_readings()
+    assert out["warmup_keys"] and out["captures"] == 0
+    alone = out["alone_ms"]
+    spread = (max(alone) - min(alone)) / min(alone)
+    assert spread <= 0.01, (
+        f"decode graph alone {alone} ms: spread {spread:.4f}; settle "
+        f"{'settled' if out['settled'] else 'saw no fall'} in "
+        f"{out['settle_s']:.1f} s from {out['first_ms']} ms with only the "
+        f"decode graph captured through {out['settle_ms']}")
